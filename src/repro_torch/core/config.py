@@ -1,0 +1,100 @@
+"""FL run configuration.  Port of ``repro.core.config``: the same field
+names and defaults.
+
+Fields whose subsystem this port does not have yet raise
+``NotImplementedError`` when set, rather than being ignored: a scenario,
+observability, checkpoint-resume, the batched engine, client sharding
+and the eval cache.  ``value_backend`` here is a *stacked* function,
+``(stacked_a, stacked_b) -> (W,)``; None selects the grad_diff_norm
+kernel's wrapper.  The device is not a field: the entry points take
+``device=`` (default ``"cuda"``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.algorithms.registry import get_algorithm
+from repro_torch.core.client import LocalSpec
+
+ENGINES = ("sequential", "batched")
+
+# field -> value meaning "off"; any other value is a subsystem not ported yet
+_NOT_PORTED = {"scenario": None, "obs": None, "checkpoint_path": None,
+               "resume": False, "engine": "sequential", "shard_clients": False,
+               "eval_cache": 0}
+
+
+@dataclass
+class FLRunConfig:
+    algorithm: str = "vafl"
+    num_clients: int = 7
+    rounds: int = 200                  # R (server rounds / event budget)
+    local: LocalSpec = field(default_factory=LocalSpec)
+    target_acc: float = 0.94
+    eval_every: int = 1
+    seed: int = 0
+    # EAFLM constants (paper: xi_d = 1/D, D = 1, alpha = 0.98); beta has
+    # m folded in (m = 1), calibrated in the reference.
+    eaflm_alpha: float = 0.98
+    eaflm_beta: float = 1e-2
+    # update compression: codec spec for accepted uploads and an optional
+    # codec for the model broadcast (no error feedback there)
+    compressor: str = "identity"
+    broadcast_compressor: Optional[str] = None
+    error_feedback: bool = True        # SGD-EF residuals on the upload path
+    # partial participation: fraction of clients in the round's set S
+    participation: float = 1.0
+    # log per-client test accuracy in every RoundRecord (one eval of
+    # every client per round, even for algorithms that never read it)
+    record_client_accs: bool = True
+    # event-driven runtime (not ported yet; kept for field parity)
+    mix_rate: float = 0.5              # rho
+    staleness_kind: str = "poly"       # 'poly' | 'const' | 'hinge'
+    events_per_eval: int = 7
+    value_backend: Optional[Callable] = None  # stacked ||dg||^2 per client
+    engine: str = "sequential"
+    max_batch: int = 0
+    buffer_size: int = 1
+    shard_clients: bool = False
+    eval_subsample: int = 0
+    eval_cache: int = 0
+    scenario: Optional[object] = None
+    checkpoint_path: Optional[str] = None
+    checkpoint_every: int = 0
+    resume: bool = False
+    obs: Optional[object] = None
+
+    def __post_init__(self):
+        get_algorithm(self.algorithm)  # raises ValueError listing names
+        if self.engine not in ENGINES:
+            raise ValueError(f"unknown engine: {self.engine!r}; known engines: "
+                             f"{', '.join(ENGINES)}")
+        for name, off in _NOT_PORTED.items():
+            if getattr(self, name) != off:
+                raise NotImplementedError(
+                    f"FLRunConfig.{name}={getattr(self, name)!r} is not ported to "
+                    "repro_torch yet (ROADMAP.md, queue 1)")
+        if self.eval_subsample < 0:
+            raise ValueError(f"eval_subsample must be >= 0 (got {self.eval_subsample})")
+        if self.checkpoint_every != 0:
+            raise NotImplementedError("checkpoint_every needs checkpoint-resume, "
+                                      "not ported to repro_torch yet (ROADMAP.md, queue 1)")
+
+    def make_algorithm(self):
+        """``(Algorithm spec, UploadPolicy, Aggregator)`` for one run."""
+        alg = get_algorithm(self.algorithm)
+        return alg, alg.make_policy(self), alg.make_aggregator(self)
+
+
+def resolve_device(device) -> torch.device:
+    """The run's device.  ``"cuda"`` (the entry points' default) needs a
+    visible card; there is no silent fallback to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but no CUDA device is visible; repro_torch runs on "
+            "the GPU by default; pass device='cpu' to run its plain PyTorch path")
+    return dev

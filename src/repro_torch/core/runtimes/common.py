@@ -1,0 +1,141 @@
+"""Plumbing of the round runtime: codec wiring with per-client error
+feedback, deterministic per-transfer encode seeds, participation
+sampling and the stacked round inputs.  Port of the round-path helpers
+of ``repro.core.runtimes.common``.
+
+Nothing in here knows which algorithm is running; runtimes consume the
+``UploadPolicy`` / ``Aggregator`` protocol for every algorithm-dependent
+decision.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.common.pytree import stacked_index, tree_map, tree_scatter, tree_stack
+from repro_torch.compress import ErrorFeedback, compress_update, get_codec
+from repro_torch.core import value as value_lib
+from repro_torch.kernels.grad_diff_norm.ops import tree_grad_diff_sq_norm
+
+
+def _value_fn(cfg):
+    """The stacked ||g_prev - g_cur||^2 backend: the grad_diff_norm
+    kernel's wrapper unless the config overrides it."""
+    return cfg.value_backend if cfg.value_backend is not None else tree_grad_diff_sq_norm
+
+
+# ------------------------------------------------- compression plumbing ---
+
+def _make_codecs(run_cfg):
+    codec = get_codec(run_cfg.compressor)
+    bcodec = None
+    if run_cfg.broadcast_compressor not in (None, "", "identity", "none"):
+        bcodec = get_codec(run_cfg.broadcast_compressor)
+    return codec, bcodec, ErrorFeedback(enabled=run_cfg.error_feedback)
+
+
+_UPLOAD, _BROADCAST = 1, 2
+
+
+def _participation_mask(part_rng, participation: float, n: int) -> np.ndarray:
+    """The round's participating set S."""
+    if participation < 1.0:
+        k = max(1, int(round(participation * n)))
+        part = np.zeros(n, bool)
+        part[part_rng.choice(n, size=k, replace=False)] = True
+        return part
+    return np.ones(n, bool)
+
+
+def _enc_seed(run_cfg, step: int, i: int, kind: int) -> int:
+    """Deterministic per-transfer seed: payloads are reproducible from the
+    run seed alone, and distinct transfers never share a seed
+    (multiplicative mixing over (seed, kind, step, client))."""
+    h = (run_cfg.seed ^ (kind * 0x9E3779B9)) & 0xFFFFFFFF
+    h = (h * 1_000_003 + step) & 0xFFFFFFFF
+    h = (h * 1_000_003 + i) & 0xFFFFFFFF
+    return h
+
+
+def _tree_delta(a, b):
+    return tree_map(lambda x, y: x.float() - y.float(), a, b)
+
+
+def _tree_apply_delta(base, delta):
+    return tree_map(lambda b, d: (b.float() + d.float()).to(b.dtype), base, delta)
+
+
+def _compressed_upload(codec, ef, comm, base, client_tree, i, seed):
+    """One client's compressed upload: encode codec(delta vs ``base``, the
+    model the client downloaded) with error feedback, account the wire
+    bytes, and return the reconstruction the server receives."""
+    delta = _tree_delta(client_tree, base)
+    payload, decoded = compress_update(codec, ef, i, delta, seed=seed)
+    comm.record_upload(1, nbytes=payload.nbytes)
+    return _tree_apply_delta(base, decoded)
+
+
+def _compressed_broadcast(bcodec, comm, params, n, seed):
+    """Encode one model broadcast to ``n`` clients; returns the lossy
+    model they receive (no EF on the downlink)."""
+    bp = bcodec.encode(params, seed=seed)
+    out = bcodec.decode(bp)
+    comm.record_broadcast(n, nbytes=n * bp.nbytes)
+    return out
+
+
+def _round_uploads(run_cfg, codec, ef, comm, base, stacked, mask, t, up_acc=None):
+    """One round's upload leg: account the selected set's uploads; with a
+    codec, each selected client ships codec(delta vs ``base``) with error
+    feedback and the reconstructions are scattered back into the stack
+    (the server aggregates what it received).  ``up_acc`` (optional (N,)
+    int array) receives each client's on-the-wire upload bytes."""
+    sel = [int(i) for i in np.flatnonzero(mask)]
+    if codec.is_identity:
+        comm.record_upload(len(sel))
+        if up_acc is not None:
+            up_acc[sel] += comm.model_bytes
+        return stacked
+    recon = []
+    for i in sel:
+        b0 = comm.uplink_bytes
+        recon.append(_compressed_upload(codec, ef, comm, base, stacked_index(stacked, i), i,
+                                        _enc_seed(run_cfg, t, i, _UPLOAD)))
+        if up_acc is not None:
+            up_acc[i] += comm.uplink_bytes - b0
+    if sel:   # one scatter per leaf, not one stack copy per client
+        stacked = tree_scatter(stacked, sel, tree_stack(recon))
+    return stacked
+
+
+def _round_broadcast(run_cfg, bcodec, comm, global_params, n, t, down_acc=None):
+    """One round's broadcast leg: returns the model the clients receive
+    (lossy under a downlink codec).  ``down_acc`` (optional (n,) int
+    array) receives each client's downlink bytes."""
+    if bcodec is None:
+        comm.record_broadcast(n)
+        if down_acc is not None:
+            down_acc += comm.model_bytes
+        return global_params
+    d0 = comm.downlink_bytes
+    out = _compressed_broadcast(bcodec, comm, global_params, n,
+                                _enc_seed(run_cfg, t, 0, _BROADCAST))
+    if down_acc is not None:
+        down_acc += (comm.downlink_bytes - d0) // n
+    return out
+
+
+def _round_helpers(run_cfg, client_eval_fn):
+    """Stacked round inputs: per-client eval, Eq. 1 values, grad norms.
+    Each is computed only when the policy (or the round record) reads it."""
+    sq_diff = _value_fn(run_cfg)
+    N = run_cfg.num_clients
+
+    def batch_eval(stacked):
+        return torch.stack([torch.as_tensor(client_eval_fn(stacked_index(stacked, i)))
+                            for i in range(N)])
+
+    def values_fn(gp, gc, accs):
+        return value_lib.communication_values_stacked(gp, gc, accs, N, sq_diff_fn=sq_diff)
+
+    return batch_eval, values_fn, value_lib.stacked_sq_norms
