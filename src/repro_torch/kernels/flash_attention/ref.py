@@ -1,0 +1,42 @@
+"""Plain PyTorch version of the flash_attention kernel: the path taken on
+CPU tensors, and what ``chip_smoke.py`` holds the kernel against on the
+card.  It computes what ``repro.kernels.flash_attention.ref.attention``
+computes (causal softmax attention in fp32, scale ``1/sqrt(D)``, masked
+scores at -1e30, an optional sliding window ``q - k < window``), on the
+model layer's layout: q (B, S, H, hd) and k, v (B, S, KV, hd), query head
+h reading kv head ``h // (H // KV)``."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention(q, k, v, window=None):
+    """q, k, v: (BH, S, D), causal (optional sliding window) -> (BH, S, D)
+    in q's dtype."""
+    S, D = q.shape[1], q.shape[2]
+    scale = 1.0 / (D ** 0.5)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def gqa_attention(q, k, v, window=None):
+    """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd), causal."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    kq = torch.repeat_interleave(k, G, dim=2)
+    vq = torch.repeat_interleave(v, G, dim=2)
+
+    def to_bh(x):
+        return x.permute(0, 2, 1, 3).reshape(B * H, S, hd)
+
+    o = attention(to_bh(q), to_bh(kq), to_bh(vq), window=window)
+    return o.reshape(B, H, S, hd).permute(0, 2, 1, 3)

@@ -1,0 +1,98 @@
+"""Public wrapper of the linear_scan kernel on the model layer's shapes.
+Port of ``repro.kernels.linear_scan.ops.recurrence``.
+
+``recurrence`` takes q, k, la (B, S, H, K), v (B, S, H, V), the RWKV6
+bonus u (H, K) and an optional fp32 initial state (B, H, K, V), and
+returns y (B, S, H, V) in v's dtype with the fp32 final state, which the
+decode cache needs.  CUDA tensors launch the kernel in
+``csrc/linear_scan.cu``, which reads every input through its strides and
+indexes u by head; CPU tensors take the plain version in ``ref.py``.
+Nothing else falls back: a CUDA tensor the kernel does not take raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.linear_scan import ref
+
+# kernel launches since the last reset (chip_smoke.py reads it to show
+# that a run went through the kernel)
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_DIM = 64   # largest K and V the kernel takes
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = build.library("linear_scan").linear_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(q, k, v, la, u, include_current, initial_state):
+    global launches
+    if v.dtype not in _DTYPES:
+        raise TypeError(f"linear_scan kernel takes float32 or bfloat16 q/k/v, got {v.dtype}")
+    B, S, H, K = q.shape
+    V = v.shape[-1]
+    if K > MAX_DIM or V > MAX_DIM:
+        raise ValueError(f"linear_scan kernel takes K, V <= {MAX_DIM}, got K={K}, V={V}")
+    if max(B, H) > 65535:
+        raise ValueError(f"linear_scan takes at most 65535 batch rows and heads (grid), "
+                         f"got B={B}, H={H}")
+    q, k, v, la = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, la))
+    if u is not None:
+        u = u.contiguous()
+    if initial_state is not None:
+        initial_state = initial_state.contiguous()
+    fn = _kernel()
+    with torch.cuda.device(q.device):
+        y = torch.empty((B, S, H, V), dtype=v.dtype, device=v.device)
+        state = torch.empty((B, H, K, V), dtype=torch.float32, device=v.device)
+        strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                           *la.stride()[:3], *y.stride()[:3])
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(),
+                 None if u is None else u.data_ptr(),
+                 None if initial_state is None else initial_state.data_ptr(),
+                 y.data_ptr(), state.data_ptr(), _DTYPES[v.dtype], B, S, H, K, V,
+                 int(include_current), ctypes.addressof(strides),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"linear_scan kernel launch failed: CUDA error {err}")
+    launches += 1
+    return y, state
+
+
+def recurrence(q, k, v, la, u=None, *, include_current: bool = True, initial_state=None):
+    """Layer shapes: q, k, la (B,S,H,K); v (B,S,H,V); u (H,K) optional;
+    initial_state (B,H,K,V).  Returns y (B,S,H,V) in v's dtype and the
+    fp32 final state (B,H,K,V)."""
+    if q.dim() != 4 or q.shape != k.shape or q.shape != la.shape or v.shape[:3] != q.shape[:3]:
+        raise ValueError(f"need q, k, la (B,S,H,K) and v (B,S,H,V), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(la.shape)}, {tuple(v.shape)}")
+    B, S, H, K = q.shape
+    V = v.shape[-1]
+    if u is not None and tuple(u.shape) != (H, K):
+        raise ValueError(f"u must be (H, K) = {(H, K)}, got {tuple(u.shape)}")
+    if initial_state is not None and tuple(initial_state.shape) != (B, H, K, V):
+        raise ValueError(f"initial_state must be {(B, H, K, V)}, got {tuple(initial_state.shape)}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    others = [t for t in (u, initial_state) if t is not None]
+    if any(t.device != q.device for t in (k, v, la, *others)):
+        raise ValueError("q, k, v, la, u and initial_state must share one device")
+    if q.device.type == "cpu":
+        return ref.recurrence(q, k, v, la, u, include_current=include_current,
+                              initial_state=initial_state)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"linear_scan runs on CPU or CUDA tensors, not {q.device}")
+    if la.dtype != torch.float32 or any(t.dtype != torch.float32 for t in others):
+        raise TypeError(f"linear_scan kernel takes float32 la, u and initial_state, got "
+                        f"{la.dtype}, {[t.dtype for t in others]}")
+    return _launch(q, k, v, la, u, include_current, initial_state)

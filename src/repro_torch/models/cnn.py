@@ -5,9 +5,17 @@ Parameters keep the reference's tree and layouts: convolution weights
 are HWIO and images NHWC at the public functions, so a reference tree
 carries over by plain copy (``repro_torch.weights``).  Inside the
 forward the activations run in NCHW for ``F.conv2d``.
+
+On CUDA the convolutions run in full fp32, as the reference's do:
+cuDNN's default for fp32 is TF32 (a 10-bit mantissa), which moved a
+small federation's final weights by up to 2.4e-3 on an H100.  The
+setting is scoped to the port's own convolutions, forward and backward
+(``_FP32Conv2d``), so a caller's process-wide cuDNN flags are left as
+they are.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -61,13 +69,49 @@ def _same_pad(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
+@contextmanager
+def _cudnn_fp32():
+    """cuDNN without TF32 for the block's duration; its other flags kept."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
+class _FP32Conv2d(torch.autograd.Function):
+    """``F.conv2d(x, w, b, stride=stride)`` whose forward and backward both
+    run inside ``_cudnn_fp32``: autograd runs the backward after the
+    forward's scope has closed, so a context around the forward alone
+    would leave the gradients in TF32.  The backward's ``torch.nn.grad``
+    calls take the forward's own keyword arguments."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride):
+        ctx.save_for_backward(x, w)
+        ctx.conv = {"stride": stride}
+        with _cudnn_fp32():
+            return F.conv2d(x, w, b, **ctx.conv)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        with _cudnn_fp32():
+            gx = torch.nn.grad.conv2d_input(x.shape, w, gy, **ctx.conv) if need_x else None
+            gw = torch.nn.grad.conv2d_weight(x, w.shape, gy, **ctx.conv) if need_w else None
+        return gx, gw, gy.sum((0, 2, 3)) if need_b else None, None
+
+
 def _conv(p, x, stride=1):
     """x NCHW, p["w"] HWIO -> NCHW."""
     k = p["w"].shape[0]
     ph = _same_pad(x.shape[2], k, stride)
     pw = _same_pad(x.shape[3], k, stride)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, p["w"].permute(3, 2, 0, 1), p["b"], stride=stride)
+    w = p["w"].permute(3, 2, 0, 1)
+    if x.is_cuda:
+        return _FP32Conv2d.apply(x, w, p["b"], stride)
+    return F.conv2d(x, w, p["b"], stride=stride)
 
 
 def cnn_init(cfg: CNNConfig, generator: torch.Generator):

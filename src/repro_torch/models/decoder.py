@@ -1,0 +1,278 @@
+"""Decoder stack for serving: dense GQA (starcoder2 style) and RWKV6.
+Port of the ``("attn", False)`` and ``("rwkv6", False)`` layer families
+of ``repro.models.decoder``.
+
+Layers are grouped into maximal runs of identical block type with
+stacked parameters, as in the reference, so a reference tree carries
+over leaf for leaf (``repro_torch.weights.from_jax_params``); where the
+reference runs ``lax.scan`` over a group, the port loops over the layer
+index.  MoE, MLA, Mamba2, shared attention, encoder-decoder, modality
+frontends, parallel blocks and qk-norm raise ``NotImplementedError``
+(ROADMAP.md §1 item 11).
+
+Public API (plain functions of (cfg, params, ...)):
+  init_params(cfg, generator)
+  forward(cfg, params, tokens)                   -> logits, aux
+  prefill(cfg, params, tokens, cache_len)        -> last logits, cache, next pos
+  init_cache(cfg, params, batch, cache_len)
+  decode_step(cfg, params, cache, token, pos)    -> logits, cache
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common.pytree import tree_map
+from repro_torch.models import attention as attn
+from repro_torch.models import recurrence as rec
+from repro_torch.models.factory import ParamFactory
+from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
+                                       init_embedding, init_mlp, init_norm,
+                                       init_unembed, unembed)
+
+PORTED_TAGS = (("attn", False), ("rwkv6", False))
+
+
+# ------------------------------------------------------------- grouping ---
+
+def layer_tags(cfg):
+    return tuple((kind, cfg.is_moe_layer(i)) for i, kind in enumerate(cfg.pattern()))
+
+
+def layer_groups(cfg):
+    """Run-length encoding of layer tags -> ((tag, count), ...)."""
+    groups = []
+    for t in layer_tags(cfg):
+        if groups and groups[-1][0] == t:
+            groups[-1][1] += 1
+        else:
+            groups.append([t, 1])
+    return tuple((t, c) for t, c in groups)
+
+
+def check_supported(cfg) -> None:
+    """Raise NotImplementedError for the parts of the zoo not ported yet."""
+    missing = [f"layer {t}" for t, _ in layer_groups(cfg) if t not in PORTED_TAGS]
+    missing += [name for name, on in (
+        ("moe", cfg.moe is not None), ("mla", cfg.attention == "mla"),
+        ("encoder", cfg.encoder is not None), ("frontend", cfg.frontend is not None),
+        ("parallel_block", cfg.parallel_block), ("qk_norm", cfg.qk_norm)) if on]
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported to "
+                                  f"repro_torch yet (ROADMAP.md §1 item 11)")
+
+
+# ----------------------------------------------------------------- init ---
+
+def _init_layer(fac, cfg, tag):
+    kind, _ = tag
+    p = {"norm1": init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)}
+    if kind == "rwkv6":
+        p["tm"] = rec.init_rwkv6(fac, cfg)
+        p["norm2"] = init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)
+        return p
+    p["attn"] = attn.init_attention(fac, cfg)
+    p["norm2"] = init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)
+    p["mlp"] = init_mlp(fac, cfg.d_model, cfg.d_ff, cfg.activation, cfg.use_bias)
+    return p
+
+
+def _stack_layers(fac, cfg, tag, count):
+    layers = [_init_layer(fac, cfg, tag) for _ in range(count)]
+    return tree_map(lambda *xs: torch.stack(xs), *layers)
+
+
+def init_params(cfg, generator: torch.Generator):
+    """Parameter tree drawn from ``generator`` on its device, in
+    ``cfg.param_dtype``."""
+    check_supported(cfg)
+    fac = ParamFactory(generator, dtype=getattr(torch, cfg.param_dtype))
+    params = {
+        "embed": init_embedding(fac, cfg.padded_vocab(), cfg.d_model),
+        "groups": [_stack_layers(fac, cfg, tag, count) for tag, count in layer_groups(cfg)],
+        "final_norm": init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = init_unembed(fac, cfg.d_model, cfg.padded_vocab())
+    return params
+
+
+# -------------------------------------------------------------- forward ---
+
+def cast_params(cfg, params):
+    """The reference's ``_cast_params``: float params to the compute
+    dtype.  Idempotent: a tree already in that dtype comes back as it is,
+    without a copy, so a server casts once and every later call is free."""
+    ct = getattr(torch, cfg.compute_dtype)
+    return tree_map(lambda x: x.to(ct) if x.is_floating_point() else x, params)
+
+
+def _mask_padded_vocab(cfg, logits):
+    """Padded vocab columns (sharding-only rows) must never win softmax/argmax."""
+    Vp, V = cfg.padded_vocab(), cfg.vocab_size
+    if Vp == V:
+        return logits
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(col < V, logits, torch.full_like(logits, -1e30))
+
+
+def _residual_scale(cfg):
+    if cfg.scale_depth is None:
+        return 1.0
+    return cfg.scale_depth / (cfg.num_layers ** 0.5)
+
+
+def _layer(gp, i):
+    return tree_map(lambda x: x[i], gp)
+
+
+def _embed(cfg, params, tokens):
+    x = embed_tokens(params["embed"], tokens) * cfg.scale_emb
+    return x.to(getattr(torch, cfg.compute_dtype))
+
+
+def _logits(cfg, params, x):
+    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    tied = params["embed"]["table"] if cfg.tie_embeddings else None
+    logits = unembed(params.get("unembed"), x, tied_table=tied) * cfg.logits_scale
+    return _mask_padded_vocab(cfg, logits)
+
+
+def _apply_layer(cfg, lp, x, positions, tag, *, window=None, cache_len=None,
+                 cache_dtype=torch.bfloat16):
+    """One layer forward (training/prefill).  With ``cache_len`` it also
+    returns the layer's filled decode cache, else None."""
+    kind, _ = tag
+    rs = _residual_scale(cfg)
+    if kind == "rwkv6":
+        h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+        y, (sh, wkv) = rec.rwkv6_time_mix(lp["tm"], cfg, h)
+        x = x + y * rs
+        h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
+        y, cm_sh = rec.rwkv6_channel_mix(lp["tm"], h)
+        return x + y * rs, {"tm_shift": sh, "wkv": wkv, "cm_shift": cm_sh}
+
+    h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+    a, (k, v) = attn.attention_forward(lp["attn"], cfg, h, positions, window=window,
+                                       return_kv=True)
+    lcache = None
+    if cache_len is not None:
+        w = cfg.serve_window
+        alen = min(cache_len, w) if w else cache_len
+        lcache = {"k": _pack_rotating(k, alen, cache_dtype),
+                  "v": _pack_rotating(v, alen, cache_dtype)}
+    x = x + a * rs
+    h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
+    y = apply_mlp(lp["mlp"], h, cfg.activation)
+    return x + y * rs, lcache
+
+
+def forward(cfg, params, tokens):
+    """tokens (B, S).  Returns (logits (B, S, V), aux loss 0.0)."""
+    check_supported(cfg)
+    params = cast_params(cfg, params)
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for gp, (tag, count) in zip(params["groups"], layer_groups(cfg)):
+        for i in range(count):
+            x, _ = _apply_layer(cfg, _layer(gp, i), x, positions, tag,
+                                window=cfg.sliding_window)
+    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# -------------------------------------------------------------- prefill ---
+
+def _pack_rotating(t, alen, dtype):
+    """t (B, S, ...) -> rotating cache buffer (B, alen, ...): slot p%alen
+    holds the latest position p (matches attention_decode's layout)."""
+    B, S = t.shape[:2]
+    buf = torch.zeros((B, alen) + tuple(t.shape[2:]), dtype=dtype, device=t.device)
+    take = min(S, alen)
+    slots = torch.arange(S - take, S, device=t.device) % alen
+    buf[:, slots] = t[:, S - take:].to(dtype)
+    return buf
+
+
+def _stack_caches(layer_caches):
+    return tree_map(lambda *xs: torch.stack(xs), *layer_caches)
+
+
+def prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat16):
+    """Batched prompt processing: one forward pass that returns
+    (last_position_logits (B,1,V), filled_cache, next_pos), the same cache
+    that stepping ``decode_step`` over the prompt fills."""
+    check_supported(cfg)
+    params = cast_params(cfg, params)
+    x = _embed(cfg, params, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    caches = []
+    for gp, (tag, count) in zip(params["groups"], layer_groups(cfg)):
+        layer_caches = []
+        for i in range(count):
+            x, lc = _apply_layer(cfg, _layer(gp, i), x, positions, tag,
+                                 window=cfg.sliding_window, cache_len=cache_len,
+                                 cache_dtype=cache_dtype)
+            layer_caches.append(lc)
+        caches.append(_stack_caches(layer_caches))
+    return _logits(cfg, params, x[:, -1:]), {"groups": caches}, S
+
+
+# --------------------------------------------------------------- decode ---
+
+def init_cache(cfg, params, batch: int, cache_len: int, *, dtype=torch.bfloat16,
+               device=None):
+    """Build the per-group stacked cache tree (on the parameters' device
+    unless ``device`` is given)."""
+    check_supported(cfg)
+    device = device if device is not None else params["embed"]["table"].device
+    window = cfg.serve_window
+    alen = min(cache_len, window) if window else cache_len
+    caches = []
+    for (kind, _), count in layer_groups(cfg):
+        if kind == "attn":
+            one = attn.init_attn_cache(cfg, batch, alen, dtype, device=device)
+        else:
+            s = rec.init_rwkv6_state(cfg, batch, device=device)
+            one = {"tm_shift": s[0], "wkv": s[1], "cm_shift": s[2]}
+        caches.append(tree_map(lambda a: torch.stack([a] * count), one))
+    return {"groups": caches}
+
+
+def _decode_layer(cfg, lp, x, lcache, pos, tag):
+    kind, _ = tag
+    rs = _residual_scale(cfg)
+    if kind == "rwkv6":
+        h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+        y, (sh, wkv) = rec.rwkv6_time_mix(lp["tm"], cfg, h, shift_state=lcache["tm_shift"],
+                                          wkv_state=lcache["wkv"])
+        x = x + y * rs
+        h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
+        y, cm_sh = rec.rwkv6_channel_mix(lp["tm"], h, shift_state=lcache["cm_shift"])
+        return x + y * rs, {"tm_shift": sh, "wkv": wkv, "cm_shift": cm_sh}
+
+    h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+    a, new_cache = attn.attention_decode(lp["attn"], cfg, h, lcache, pos,
+                                         window=cfg.serve_window)
+    x = x + a * rs
+    h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
+    y = apply_mlp(lp["mlp"], h, cfg.activation)
+    return x + y * rs, new_cache
+
+
+def decode_step(cfg, params, cache, token, pos: int):
+    """token (B, 1) int; pos the token's position (int).  Returns
+    (logits (B,1,V), new cache); the input cache is not modified."""
+    check_supported(cfg)
+    params = cast_params(cfg, params)
+    x = _embed(cfg, params, token)
+    new_groups = []
+    for gi, (gp, (tag, count)) in enumerate(zip(params["groups"], layer_groups(cfg))):
+        gc = cache["groups"][gi]
+        layer_caches = []
+        for i in range(count):
+            x, nc = _decode_layer(cfg, _layer(gp, i), x, _layer(gc, i), pos, tag)
+            layer_caches.append(nc)
+        new_groups.append(_stack_caches(layer_caches))
+    new_cache = dict(cache)
+    new_cache["groups"] = new_groups
+    return _logits(cfg, params, x), new_cache

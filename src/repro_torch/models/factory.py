@@ -1,7 +1,7 @@
 """Parameter factory: builds parameter trees from an explicit
-``torch.Generator``.  Port of ``repro.models.factory`` with the three
-initializers the client models use; its abstract (sharding-spec) mode
-and the other initializers wait for the model zoo.
+``torch.Generator``.  Port of ``repro.models.factory`` with all six of
+its initializers; its abstract (sharding-spec) mode waits (ROADMAP.md
+§1 item 11).
 
 The draws come from torch's generator, so a tree made here from a seed
 differs from the reference's tree for the same seed; tests that compare
@@ -37,6 +37,8 @@ class ParamFactory:
         dev = self.generator.device
         if init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=dev)
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=dev)
         if init == "normal":
             std = scale if scale is not None else 0.02
             return (self._normal(shape) * std).to(dtype)
@@ -44,4 +46,10 @@ class ParamFactory:
             fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
             std = (scale if scale is not None else 1.0) / (fan_in ** 0.5)
             return (self._normal(shape) * std).to(dtype)
+        if init == "uniform":
+            lim = scale if scale is not None else 1.0 / (shape[0] ** 0.5)
+            u = torch.rand(shape, generator=self.generator, device=dev, dtype=torch.float32)
+            return ((2.0 * u - 1.0) * lim).to(dtype)
+        if init == "constant":
+            return torch.full(shape, scale, dtype=dtype, device=dev)
         raise ValueError(f"unknown init {init}")

@@ -1,0 +1,157 @@
+"""Linear-recurrence blocks: RWKV6 (Finch).  Port of the RWKV6 part of
+``repro.models.recurrence``.
+
+RWKV6's time-mix is an instance of the gated linear recurrence
+
+    S_t = diag(exp(log_a_t)) @ S_{t-1} + k_t v_t^T          S: (K, V)
+    y_t = q_t^T S_t                      (include_current=True, Mamba2)
+    y_t = q_t^T (S_{t-1} + diag(u) k_t v_t^T)               (RWKV6 bonus)
+
+with a per-dim decay.  The prompt runs through the linear_scan kernel's
+wrapper (``linear_recurrence``): on CUDA the hand-written kernel, which
+steps through time exactly, on the CPU its plain sequential version.
+The reference's chunked algorithm is a TPU decomposition of the same
+function and is not carried over.  Decode is one plain state update.
+Mamba2 and per-head decay wait (ROADMAP.md §1 item 11).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.linear_scan import ops as scan_ops
+from repro_torch.kernels.linear_scan import ref as scan_ref
+from repro_torch.models.factory import ParamFactory
+from repro_torch.models.layers import apply_group_norm, init_group_norm
+
+LOG_A_MIN = scan_ref.LOG_A_MIN  # per-step clamp of the per-dim log-decay in the prompt path
+
+
+# ==================================================== linear recurrence ===
+
+def linear_recurrence_scan(q, k, v, log_a, u=None, include_current=True,
+                           initial_state=None):
+    """Exact sequential reference, unclamped. q,k,log_a (B,S,H,K); v (B,S,H,V).
+    Returns y (B,S,H,V), final state (B,H,K,V)."""
+    return scan_ref.scan(q, k, v, log_a, u, include_current=include_current,
+                         initial_state=initial_state)
+
+
+def linear_recurrence(q, k, v, log_a, u=None, include_current=True,
+                      initial_state=None, decay_per: str = "dim"):
+    """The reference's prompt recurrence: log-decay clipped to
+    [LOG_A_MIN, 0] per dim, through the linear_scan kernel's wrapper.
+    The reference's ``chunk`` (the size of its decomposition) has no
+    counterpart: the function does not depend on it, and the kernel
+    stages its own.  Returns y (B,S,H,V) in v's dtype and the fp32 final
+    state (B,H,K,V)."""
+    if decay_per != "dim":
+        raise NotImplementedError(f"decay_per={decay_per!r} (Mamba2) is not ported to "
+                                  f"repro_torch yet (ROADMAP.md §1 item 11)")
+    return scan_ops.recurrence(q, k, v, log_a, u, include_current=include_current,
+                               initial_state=initial_state)
+
+
+def recurrence_decode_step(state, qt, kt, vt, la_t, u=None, include_current=True):
+    """One-token state update. state (B,H,K,V); qt/kt/la_t (B,H,K); vt (B,H,V)."""
+    f32 = torch.float32
+    out_dtype = vt.dtype
+    qt, kt, vt, la_t = (t.to(f32) for t in (qt, kt, vt, la_t))
+    kv = kt[..., :, None] * vt[..., None, :]
+    if include_current:
+        new = torch.exp(la_t)[..., None] * state + kv
+        y = torch.einsum("bhk,bhkv->bhv", qt, new)
+    else:
+        att = state + (u.to(f32)[None, :, :, None] * kv if u is not None else kv)
+        y = torch.einsum("bhk,bhkv->bhv", qt, att)
+        new = torch.exp(la_t)[..., None] * state + kv
+    return y.to(out_dtype), new
+
+
+# ================================================================ RWKV6 ===
+
+def init_rwkv6(fac: ParamFactory, cfg):
+    d, ff, r = cfg.d_model, cfg.d_ff, cfg.rwkv
+    H = d // r.head_dim
+    names = ("r", "k", "v", "g", "w")
+    p = {
+        # time-mix ddlerp: x_c = x + (shift(x)-x) * (mu_c + lora)
+        "mu": {c: fac.param((d,), ("embed",), init="uniform", scale=0.5) for c in names},
+        "mix_A": fac.param((d, 5 * cfg.rwkv.mix_lora), ("embed", None)),
+        "mix_B": {c: fac.param((r.mix_lora, d), (None, "embed")) for c in names},
+        "wr": fac.param((d, d), ("embed", "heads")),
+        "wk": fac.param((d, d), ("embed", "heads")),
+        "wv": fac.param((d, d), ("embed", "heads")),
+        "wg": fac.param((d, d), ("embed", "heads")),
+        "wo": fac.param((d, d), ("heads", "embed")),
+        "w0": fac.param((d,), ("embed",), init="constant", scale=-0.6),
+        "decay_A": fac.param((d, r.decay_lora), ("embed", None)),
+        "decay_B": fac.param((r.decay_lora, d), (None, "embed")),
+        "u": fac.param((H, r.head_dim), (None, None), init="uniform", scale=0.5),
+        "ln_x": init_group_norm(fac, H, r.head_dim),
+        # channel mix
+        "cm_mu_k": fac.param((d,), ("embed",), init="uniform", scale=0.5),
+        "cm_mu_r": fac.param((d,), ("embed",), init="uniform", scale=0.5),
+        "cm_k": fac.param((d, ff), ("embed", "mlp")),
+        "cm_v": fac.param((ff, d), ("mlp", "embed")),
+        "cm_r": fac.param((d, d), ("embed", "heads")),
+    }
+    return p
+
+
+def _token_shift(x, last=None):
+    """shift(x)_t = x_{t-1}; last (B,d) is the carry for decode/chunking."""
+    B, S, d = x.shape
+    first = (torch.zeros((B, 1, d), dtype=x.dtype, device=x.device) if last is None
+             else last[:, None].to(x.dtype))
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def rwkv6_time_mix(p, cfg, x, shift_state=None, wkv_state=None):
+    B, S, d = x.shape
+    r_cfg = cfg.rwkv
+    H, hd = d // r_cfg.head_dim, r_cfg.head_dim
+    xx = _token_shift(x, shift_state) - x
+    lora = torch.tanh(x @ p["mix_A"]).reshape(B, S, 5, r_cfg.mix_lora)
+    mixed = {}
+    for i, c in enumerate(("r", "k", "v", "g", "w")):
+        mu = p["mu"][c] + lora[:, :, i] @ p["mix_B"][c]
+        mixed[c] = x + xx * mu
+    r = (mixed["r"] @ p["wr"]).reshape(B, S, H, hd)
+    k = (mixed["k"] @ p["wk"]).reshape(B, S, H, hd)
+    v = (mixed["v"] @ p["wv"]).reshape(B, S, H, hd)
+    g = F.silu(mixed["g"] @ p["wg"])
+    log_w = -torch.exp((p["w0"] + torch.tanh(mixed["w"] @ p["decay_A"]) @ p["decay_B"]
+                        ).float())                              # (B,S,d) <= 0
+    log_a = log_w.reshape(B, S, H, hd)
+
+    if S == 1 and wkv_state is not None:
+        y, new_wkv = recurrence_decode_step(
+            wkv_state, r[:, 0], k[:, 0], v[:, 0], log_a[:, 0], u=p["u"],
+            include_current=False)
+        y = y[:, None]
+    else:
+        # the kernel takes u and the state in fp32 (bf16 u * fp32 kv
+        # promotes to fp32 in the reference too)
+        y, new_wkv = linear_recurrence(
+            r, k, v, log_a, u=p["u"].float(), include_current=False,
+            initial_state=wkv_state, decay_per="dim")
+    y = apply_group_norm(p["ln_x"], y).reshape(B, S, d)
+    y = (y * g) @ p["wo"]
+    return y, (x[:, -1], new_wkv)
+
+
+def rwkv6_channel_mix(p, x, shift_state=None):
+    xx = _token_shift(x, shift_state) - x
+    xk = x + xx * p["cm_mu_k"]
+    xr = x + xx * p["cm_mu_r"]
+    kk = torch.square(F.relu(xk @ p["cm_k"]))
+    return torch.sigmoid(xr @ p["cm_r"]) * (kk @ p["cm_v"]), x[:, -1]
+
+
+def init_rwkv6_state(cfg, batch: int, dtype=torch.float32, device="cpu"):
+    d = cfg.d_model
+    H, hd = d // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    return (torch.zeros((batch, d), dtype=dtype, device=device),            # tm shift
+            torch.zeros((batch, H, hd, hd), dtype=torch.float32, device=device),  # wkv state
+            torch.zeros((batch, d), dtype=dtype, device=device))            # cm shift

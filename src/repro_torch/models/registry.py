@@ -1,0 +1,47 @@
+"""Architecture registry: maps --arch ids to config modules.  Port of
+``repro.models.registry``.
+
+``ARCH_IDS`` lists every architecture of the reference's zoo; the port
+serves the ones in ``PORTED`` (``repro_torch/configs/<id>.py``).  The
+others raise ``NotImplementedError``: ROADMAP.md §1 item 11 queues them.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = (
+    "llava_next_mistral_7b",
+    "granite_moe_3b_a800m",
+    "minicpm_2b",
+    "starcoder2_3b",
+    "command_r_35b",
+    "minicpm3_4b",
+    "zamba2_7b",
+    "qwen3_moe_30b_a3b",
+    "rwkv6_3b",
+    "whisper_small",
+)
+PORTED = ("starcoder2_3b", "rwkv6_3b")
+
+
+def normalize(arch: str) -> str:
+    return arch.replace("-", "_")
+
+
+def _module(arch: str):
+    name = normalize(arch)
+    if name not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {arch!r}; known: {', '.join(ARCH_IDS)}")
+    if name not in PORTED:
+        raise NotImplementedError(
+            f"{name} is not ported to repro_torch yet (ROADMAP.md §1 item 11); "
+            f"ported: {', '.join(PORTED)}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(arch: str):
+    return _module(arch).config()
+
+
+def get_smoke_config(arch: str):
+    return _module(arch).smoke_config()

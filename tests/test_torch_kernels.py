@@ -220,27 +220,19 @@ def test_gpu_codec_planes_match_cpu(cuda):
     assert gpu.nbytes == cpu.nbytes and gpu.meta["scale"] == cpu.meta["scale"]
 
 
-@pytest.fixture
-def fp32_cuda(cuda):
-    """The card in full fp32, as chip_smoke.py runs it: cuDNN's default
-    TF32 convolutions would round every product to a 10-bit mantissa."""
-    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    yield cuda
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("codec", ["identity", "topk0.1_int8"])
 @pytest.mark.parametrize("model", ["mlp", "cnn"])
-def test_gpu_federation_matches_cpu_path(fp32_cuda, model, codec):
+def test_gpu_federation_matches_cpu_path(cuda, model, codec):
     """A small vafl federation on the card and on the CPU, with the same
     initial model and permutations: the same selections and CommStats,
-    and close final models.  A last-bit difference (cuDNN against the CPU
-    convolution) can tip one entry's stochastic rounding across an
-    integer, which moves it by one int8 step (~1e-4 here), so under
-    topk0.1_int8 all but 0.1 % of the entries agree to 1e-4, as in
-    tests/test_torch_system.py."""
+    and close final models.  torch's process-wide flags stay at their
+    defaults (cuDNN TF32 on), as a user's would: the port's CNN runs its
+    own convolutions in full fp32 and leaves the flags as it found them.
+    A last-bit difference (cuDNN against the CPU convolution) can tip one
+    entry's stochastic rounding across an integer, which moves it by one
+    int8 step (~1e-4 here), so under topk0.1_int8 all but 0.1 % of the
+    entries agree to 1e-4, as in tests/test_torch_system.py."""
     xtr, ytr, xte, yte = synthetic_mnist(600, 200, seed=1)
     data = iid_partition(xtr, ytr, 3, samples_per_client=160, seed=1)
     gen = np.random.RandomState(2)
@@ -251,6 +243,7 @@ def test_gpu_federation_matches_cpu_path(fp32_cuda, model, codec):
     else:
         cfg, fwd = CNNConfig(channels=(8, 16), num_blocks=1), cnn_forward
         init = cnn_init(cfg, torch.Generator().manual_seed(3))
+    assert torch.backends.cudnn.allow_tf32      # torch's default, untouched
     out = {}
     for device in ("cuda", "cpu"):
         seen = {}
@@ -267,6 +260,7 @@ def test_gpu_federation_matches_cpu_path(fp32_cuda, model, codec):
         res = fed.run(rounds=2, perm_fn=lambda i, t, e, m: perms[(i, t, e)])
         out[device] = (res, gd_ops.launches - g0, tq_ops.launches - t0,
                        torch.cat([x.detach().cpu().ravel() for x in tree_leaves(seen["params"])]))
+    assert torch.backends.cudnn.allow_tf32
     (rg, gg, tg, pg), (rc, gc, tc, pc) = out["cuda"], out["cpu"]
     assert (gg, gc) == (2, 0) and tc == 0
     assert tg == (rg.comm.model_uploads if codec == "topk0.1_int8" else 0)

@@ -4,6 +4,7 @@ its batch permutations injected."""
 import pytest
 
 torch = pytest.importorskip("torch")
+F = torch.nn.functional
 torch.set_num_threads(1)   # the suite runs a test process per core
 
 import jax  # noqa: E402
@@ -144,3 +145,25 @@ def test_evaluator_matches_reference(n, batch, subsample):
     got = float(tclient.make_evaluator(tfwd, tcfg, x, y, batch=batch, subsample=subsample,
                                        subsample_seed=2)(from_jax_params(params)))
     assert got == want
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("need_x", [False, True])
+def test_fp32_conv_function_matches_conv2d(stride, need_x):
+    """The CNN's card-side convolution (cuDNN without TF32, forward and
+    backward) computes F.conv2d and its gradients; on the CPU the flag is
+    inert, so values and gradients equal autograd's through F.conv2d."""
+    rs = np.random.RandomState(4)
+    x0, w0, b0 = (torch.from_numpy(rs.randn(*s).astype(np.float32))
+                  for s in ((3, 4, 9, 9), (8, 4, 3, 3), (8,)))
+    gy = torch.from_numpy(rs.randn(3, 8, 7 if stride == 1 else 4, 7 if stride == 1 else 4)
+                          .astype(np.float32))
+    outs = []
+    for conv in (tcnn._FP32Conv2d.apply, lambda x, w, b, s: F.conv2d(x, w, b, stride=s)):
+        x = x0.clone().requires_grad_(need_x)
+        w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+        y = conv(x, w, b, stride)
+        grads = torch.autograd.grad(y, [t for t in (x, w, b) if t.requires_grad], gy)
+        outs.append([y.detach()] + list(grads))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -51,6 +51,10 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core.federation, repro_torch.weights\n"
         "import repro_torch.kernels.grad_diff_norm.ops, repro_torch.kernels.topk_quant.ops\n"
+        "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.linear_scan.ops\n"
+        "import repro_torch.launch.serve, repro_torch.models.decoder\n"
+        "from repro_torch.models.registry import get_smoke_config\n"
+        "assert get_smoke_config('rwkv6_3b').name == 'rwkv6_3b_smoke'\n"
         "import repro_torch.algorithms.builtin, repro_torch.compress\n"
         "from repro_torch.core.runtimes import run_round_based\n"
         "from repro_torch.algorithms import get_algorithm\n"
