@@ -20,6 +20,11 @@ Run it from the root of a checkout:
 
     python3 chip_smoke.py
 
+Before the main paths it counts the tensor-core instructions (HMMA,
+HGMMA) in each kernel's compiled functions (``cuobjdump -sass`` from
+nvcc's toolkit) and fails if a bf16 route of flash_attention or
+linear_scan has none.
+
 It exits non-zero, and prints no result, when a phase fails, when no
 CUDA device is visible, or when it is not inside a checkout.  The last
 line of its output is one JSON object naming the device; the line
@@ -52,12 +57,29 @@ FA_CASES = [(4, 2048, 24, 2, 128, 4096, "bfloat16"), (4, 1000, 24, 2, 128, 4096,
 FA_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # linear_scan cases: (B, S, H, K, V, form, la); the first is rwkv6_3b's
 # prefill in serve(batch=4, prompt_len=2048): bf16 r/k/v, fp32 log-decay, u;
-# then the Mamba2 form, a ragged S, decay at the clamp, and a large shape
+# then the Mamba2 form, a ragged S, decay at the clamp, a large shape, and
+# batches of 1 (40 (b, h): split in two V slices) and 3 (120: one an SM)
 LS_CASES = [(4, 2048, 40, 64, 64, "rwkv", "model"), (4, 2048, 40, 64, 64, "mamba", "model"),
             (4, 1000, 40, 64, 64, "rwkv", "model"), (4, 2048, 40, 64, 64, "rwkv", "clamp"),
-            (8, 4096, 40, 64, 64, "rwkv", "model")]
+            (8, 4096, 40, 64, 64, "rwkv", "model"), (1, 2048, 40, 64, 64, "rwkv", "model"),
+            (3, 2048, 40, 64, 64, "rwkv", "model")]
 LS_TOL = {"y": 3e-2, "state": 2e-4}
 LS_CHUNK = 32                    # rwkv6_3b's chunk of the TPU kernel's chunked form
+# what each kernel route is built from (csrc/*.cu)
+DESIGN = {("flash_attention", "bfloat16"): "mma.sync m16n8k16 bf16, cp.async 2-stage K/V ring, "
+                                           "128-query x 64-key tiles (8 warps x 16 rows), Q and P "
+                                           "in registers, raw-score softmax on ex2.approx",
+          ("flash_attention", "float32"): "fp32 FMA on the CUDA cores, 64 x 64 tiles",
+          ("grad_diff_norm", "float32"): "two-stage row reduction, coalesced loads, no atomics",
+          ("topk_quant", "float32"): "one elementwise pass, four elements a thread, counter-based "
+                                     "hash",
+          ("linear_scan", "bfloat16"): "chunks of 32 factored at 16 and 8 steps (no exponent > 0), "
+                                       "mma.sync m16n8k16 bf16 with hi/lo splits, 8 x 8 diagonal "
+                                       "blocks as running decay products, cp.async 2-stage, "
+                                       "a block per (b, h), or per (32-column V slice, b, h) "
+                                       "where 2 B H blocks fit one an SM"}
+# the functions of each bf16 route in the compiled library (nvcc's names)
+TC_FUNCS = {"flash_attention": "flash_fwd_bf16", "linear_scan": "scan_bf16"}
 SERVE = dict(batch=4, prompt_len=2048, gen=32)
 CONSISTENCY_LEN = 128            # prefill vs stepwise decode at full width
 
@@ -99,10 +121,60 @@ def phase_build():
     logs = build.build()
     say(f"[build] {len(logs)} kernels built for sm_90a in {time.time() - t0:.1f} s "
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+    names = _demangle([line.split("'")[1] for log in logs.values() for line in log.splitlines()
+                       if "Compiling entry function" in line])
     for name, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                say(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = names[line.split("'")[1]] + ": "
+            elif "registers" in line or "smem" in line or "spill" in line:
+                say(f"[build] {name}: {fn}{line.replace('ptxas info    :', '').strip()}")
+
+
+def _demangle(mangled: list) -> dict:
+    """nvcc's mangled function names through the toolkit's ``cu++filt``
+    (which names the anonymous namespace ``<unnamed>``)."""
+    from repro_torch.kernels import build
+    if not mangled:
+        return {}
+    tool = Path(build.nvcc_path()).parent / "cu++filt"
+    out = subprocess.run([str(tool), *mangled], capture_output=True, text=True, timeout=60,
+                         stdin=subprocess.DEVNULL)
+    plain = out.stdout.splitlines()
+    if out.returncode != 0 or len(plain) != len(mangled):
+        fail(f"cu++filt: exit {out.returncode}, {len(plain)} names for {len(mangled)}: "
+             f"{out.stderr[-2000:]}")
+    return {m: d.replace("<unnamed>::", "") for m, d in zip(mangled, plain)}
+
+
+def phase_sass() -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in every function of the
+    flash_attention and linear_scan libraries, read with ``cuobjdump
+    -sass`` from nvcc's toolkit; fails if a bf16 route has none."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    counts = {}
+    for name, bf16_fn in TC_FUNCS.items():
+        out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            fail(f"cuobjdump -sass {name}: exit {out.returncode}: {out.stderr[-2000:]}")
+        per_fn, fn = {}, None
+        for line in out.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                per_fn[fn] = 0
+            elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+                per_fn[fn] += 1
+        tc = {f: n for f, n in per_fn.items() if bf16_fn in f}
+        if not tc or min(tc.values()) == 0:
+            fail(f"{name}: no tensor-core instruction in its bf16 route ({per_fn})")
+        counts[name] = sum(tc.values())
+        plain = _demangle(list(per_fn))
+        say(f"[sass] {name}: tensor-core instructions (HMMA/HGMMA): "
+            + ", ".join(f"{plain[f]} {n}" for f, n in per_fn.items()))
+    return counts
 
 
 def phase_grad_diff_norm(rows: dict):
@@ -135,7 +207,9 @@ def phase_grad_diff_norm(rows: dict):
                 "name": "grad_diff_norm", "route": "cuda",
                 "source": "src/repro_torch/csrc/grad_diff_norm.cu",
                 "replaces": "src/repro/kernels/grad_diff_norm/kernel.py:39",
-                "shape": [w, p], "dtype": "float32", "max_abs_err": err, "max_rel_err": rel,
+                "shape": [w, p], "dtype": "float32",
+                "design": DESIGN[("grad_diff_norm", "float32")], "max_abs_err": err,
+                "max_rel_err": rel,
                 "ms": cuda_ms(lambda: ops.grad_diff_sq_norm_2d(a, b)),
                 "plain_ms": cuda_ms(lambda: ref.grad_diff_sq_norm_2d(a, b)),
                 "bound_ms": bms, "bound_by": bby, "library_ms": lib,
@@ -173,7 +247,8 @@ def phase_topk_quant(rows: dict):
             "name": "topk_quant", "route": "cuda",
             "source": "src/repro_torch/csrc/topk_quant.cu",
             "replaces": "src/repro/kernels/topk_quant/kernel.py:55",
-            "shape": [n], "dtype": "float32", "max_abs_err": err,
+            "shape": [n], "dtype": "float32", "design": DESIGN[("topk_quant", "float32")],
+            "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.topk_quant(x, thr, scale, 7)),
             "plain_ms": cuda_ms(lambda: ref.topk_quant(x, thr, scale, 7)),
             "bound_ms": bms, "bound_by": bby, "library_ms": None, "library_call": None,
@@ -221,7 +296,7 @@ def phase_flash_attention(rows: list):
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
             "shape": [B, S, H, KV, hd], "window": window, "dtype": dtype,
-            "max_abs_err": err, "tol": tol,
+            "design": DESIGN[("flash_attention", dtype)], "max_abs_err": err, "tol": tol,
             "ms": cuda_ms(lambda: ops.gqa_flash_attention(q, k, v, window=window), 20, 3),
             "plain_ms": cuda_ms(lambda: ref.gqa_attention(q, k, v, window=window), 10, 2),
             "bound_ms": bms, "bound_by": bby, "bound_bytes": nbytes, "bound_ops": nops,
@@ -279,6 +354,7 @@ def phase_linear_scan(rows: list):
             "name": "linear_scan", "route": "cuda", "source": "src/repro_torch/csrc/linear_scan.cu",
             "replaces": "src/repro/kernels/linear_scan/kernel.py:78",
             "shape": [B, S, H, K, V], "form": form, "la": la_kind, "dtype": "bfloat16",
+            "design": DESIGN[("linear_scan", "bfloat16")],
             "max_abs_err": max(err_y, err_s), "max_abs_err_y": err_y, "max_abs_err_state": err_s,
             "ms": cuda_ms(lambda: ops.recurrence(q, k, v, la, u, include_current=cur), 20, 3),
             "plain_ms": cuda_ms(lambda: ref.recurrence(q, k, v, la, u, include_current=cur), 3, 1),
@@ -471,6 +547,7 @@ def main() -> None:
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)} ({smi})")
 
     phase_build()
+    sass = phase_sass()
     gd_rows, tq_rows, fa_rows, ls_rows = {}, {}, [], []
     phase_grad_diff_norm(gd_rows)
     phase_topk_quant(tq_rows)
@@ -489,8 +566,10 @@ def main() -> None:
         say("[time] " + json.dumps(row))
     main_gd = dict(gd_rows[GD_SHAPES[0]], launches=gd_launches)
     main_tq = dict(tq_rows[TQ_SIZES[0]], launches=tq_launches)
-    main_fa = dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"])
-    main_ls = dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"])
+    main_fa = dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"],
+                   tensor_core_instructions=sass["flash_attention"])
+    main_ls = dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"],
+                   tensor_core_instructions=sass["linear_scan"])
     say(f"[time] main path seconds per round (3 rounds, host clock, synchronized): "
         f"vafl {secs['vafl'] / 3:.4f}, afl {secs['afl'] / 3:.4f}")
     for arch, row in (("starcoder2_3b", main_fa), ("rwkv6_3b", main_ls)):

@@ -6,46 +6,66 @@
 // query head h of batch row b,
 //   o[b, t, h] = sum_s softmax_s(q[b,t,h] . k[b,s,g] / sqrt(D)) v[b,s,g]
 // over keys s <= t (and t - s < window when a window is given), with
-// g = h / (H / KV) the kv head of h's group, in fp32 whatever the input
-// type, masked scores at -1e30 and o = acc / max(l, 1e-30), as the TPU
-// kernel does.  q is (B, S, H, D) and k, v (B, S, KV, D), each read
+// g = h / (H / KV) the kv head of h's group, softmax in fp32 whatever the
+// input type, masked scores at -1e30 and o = acc / max(l, 1e-30), as the
+// TPU kernel does.  q is (B, S, H, D) and k, v (B, S, KV, D), each read
 // through its own strides with D unit-stride, so neither the kv repeat
 // nor the (B*H, S, D) transpose of the TPU wrapper is materialised.
+// Rows and keys past S (a ragged last tile) are masked, so any S works;
+// key tiles wholly above the diagonal or wholly outside the window are
+// never loaded.
 //
 // Bound on an H100: operations.  The causal product costs about
 // 2 * B * H * S^2 * D multiply-adds over about 2 * B * S * (H + 2 KV) * D
-// elements moved, hundreds of operations per byte at S = 2048.  This is
-// the simple first kernel: plain fp32 FMA tiles in shared memory, no
-// tensor cores (mma/wgmma are a later change), so it runs far below the
-// bf16 tensor-core bound and is measured against it.
+// elements moved, hundreds of operations per byte at S = 2048: the bf16
+// tensor-core rate is the bar.
 //
-// Design.  One block of 256 threads per (64-query tile, head, batch
-// row), heaviest (latest) query tiles launched first.  The query tile
-// stays in shared memory; a loop walks the 64-key tiles that hold at
-// least one unmasked key for some row of the tile: tiles wholly above
-// the diagonal or wholly outside the window are never loaded.  Each
-// thread owns a 4 x 4 patch of the score tile and 4 rows x D/16 columns
-// of the output accumulator, in registers, with its rows' running max
-// and denominator; a row's 16 owners sit in one half-warp and reduce
-// with shuffles.  Rows and keys past S (a ragged last tile) are masked,
-// so any S works.  K rows are padded by one float in shared memory so
+// Two routes, chosen by the input type:
+//
+// bf16 (the serving path): FlashAttention-2 on mma.sync.  One block of
+// 8 warps per (128-query tile, head, batch row), latest query tiles
+// first; each warp owns 16 query rows.  The Q tile is copied to shared
+// memory once and kept in registers as bf16 A fragments.  K and V tiles
+// of 64 keys arrive by 16-byte cp.async (zero-filled past S) in a
+// two-stage ring, so tile j + 1 is in flight while tile j is multiplied;
+// rows are padded by 16 bytes, which puts the eight rows of every
+// ldmatrix in distinct banks.  S = Q K^T and O += P V run as
+// mma.sync.m16n8k16 bf16 -> fp32.  The softmax stays in fp32 registers
+// on raw scores: each row's running max is reduced over the four lanes
+// that hold it with two shuffles, and each weight costs one FFMA (scale
+// and max folded into a base-2 exponent) and one MUFU ex2; its
+// denominator is summed per lane and reduced once at the end.  The
+// softmax's instruction count, more than the tensor cores, sets this
+// kernel's pace (PERF.md §6), hence the one FFMA and one ex2 a weight
+// and no subnormal handling around the ex2.  P is rescaled and packed to
+// bf16 in registers: the S accumulator's layout is the A-operand layout
+// of the next mma, so P never touches shared memory.
+// A warp skips a key tile that is wholly masked for its 16 rows and masks
+// only the tiles that cross its diagonal, the window's edge or S.  Rows
+// must be 16-byte aligned for cp.async; the wrapper (ops.py) copies a
+// tensor whose base or strides are not.  Shared memory: (128 + 4 * 64)
+// rows of D + 8 bf16, 104,448 bytes at D = 128.
+//
+// fp32 (held to 2e-5, which TF32 products would break): the first
+// kernel's plain fp32 FMA tiles on the CUDA cores.  One block of 256
+// threads per (64-query tile, head, batch row); the query tile stays in
+// shared memory and each thread owns a 4 x 4 patch of the score tile and
+// 4 rows x D/16 columns of the output accumulator, in registers, with its
+// rows' running max and denominator; a row's 16 owners sit in one
+// half-warp and reduce with shuffles.  K rows are padded by one float so
 // that 16 rows read at one depth fall in 16 banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm80.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;        // queries per block
-constexpr int kBK = 64;        // keys per inner tile
-constexpr int kThreads = 256;  // 16 x 16: thread (ty, tx) owns rows ty + 16 i, keys tx + 16 j
+constexpr int kBK = 64;        // keys per inner tile (both routes)
+constexpr int kThreads = 256;  // both routes
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 struct Args {
   const void* q;
@@ -57,34 +77,223 @@ struct Args {
   float scale;
 };
 
-constexpr size_t smem_bytes(int hd) {
-  return sizeof(float) * ((size_t)kBQ * (hd + 1) + (size_t)kBK * (hd + 1) +
-                          (size_t)kBK * hd + (size_t)kBQ * (kBK + 1));
+// ------------------------------------------------------------ bf16 route
+
+constexpr int kBQ = 128;       // queries per block: 8 warps x 16 rows
+
+template <int HD>
+constexpr size_t bf16_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (size_t)(HD + 8) * (kBQ + 4 * kBK);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
-  extern __shared__ float smem[];
+// ROWS rows of HD bf16 from src (row stride `stride` elements) into dst
+// (pitch HD + 8), starting at sequence position s0; rows past S are zeros.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long stride, int s0, int S, int tid) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+  static_assert(ROWS * kChunks % kThreads == 0, "tile must split evenly over the block");
+#pragma unroll
+  for (int j = 0; j < ROWS * kChunks / kThreads; ++j) {
+    const int i = tid + j * kThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const int s = s0 + r;
+    const bool in = s < S;
+    mma::cp_async16(dst + r * (HD + 8) + c * 8, in ? src + s * stride + c * 8 : src, in ? 16 : 0);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
+  constexpr int P = HD + 8;   // shared-memory row pitch, bf16 elements
+  constexpr int KS = HD / 16; // k-steps of Q K^T
+  constexpr int NT = HD / 8;  // n-tiles of O
+  extern __shared__ __align__(16) unsigned char bf16_smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(bf16_smem);  // kBQ x P
+  __nv_bfloat16* k_s = q_s + kBQ * P;                                 // 2 stages x kBK x P
+  __nv_bfloat16* v_s = k_s + 2 * kBK * P;                             // 2 stages x kBK x P
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int grp = h / (a.H / a.KV);
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + b * a.sq[0] + h * a.sq[2];
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.sk[0] + grp * a.sk[2];
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.sv[0] + grp * a.sv[2];
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + b * a.so[0] + h * a.so[2];
+
+  // key tiles holding an unmasked key for some row of this query tile
+  const int q_last = min(q0 + kBQ, a.S) - 1;
+  const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int kt0 = k_first / kBK, kt1 = q_last / kBK;
+
+  load_rows<HD, kBQ>(q_s, qg, a.sq[1], q0, a.S, tid);
+  mma::cp_async_commit();
+  load_rows<HD, kBK>(k_s, kg, a.sk[1], kt0 * kBK, a.S, tid);
+  load_rows<HD, kBK>(v_s, vg, a.sv[1], kt0 * kBK, a.S, tid);
+  mma::cp_async_commit();
+  mma::cp_async_wait<1>();  // the Q group has landed
+  __syncthreads();
+
+  const int wq0 = q0 + warp * 16;  // this warp's first query row
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    mma::ldmatrix_x4(qf[ks], q_s + (warp * 16 + lane % 16) * P + ks * 16 + (lane / 16) * 8);
+
+  float o[NT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+
+  for (int kt = kt0; kt <= kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    mma::cp_async_wait<0>();  // tile kt has landed ...
+    __syncthreads();          // ... for every thread, and tile kt - 1 is no longer read
+    if (kt < kt1) {
+      load_rows<HD, kBK>(k_s + (st ^ 1) * kBK * P, kg, a.sk[1], (kt + 1) * kBK, a.S, tid);
+      load_rows<HD, kBK>(v_s + (st ^ 1) * kBK * P, vg, a.sv[1], (kt + 1) * kBK, a.S, tid);
+      mma::cp_async_commit();
+    }
+    const int k0 = kt * kBK;
+    if (wq0 >= a.S || k0 > wq0 + 15 || (a.window > 0 && wq0 - (k0 + kBK - 1) >= a.window))
+      continue;  // every key of the tile is masked for this warp's rows
+    const bool need_mask = k0 + kBK - 1 > wq0 || k0 + kBK > a.S ||
+                           (a.window > 0 && wq0 + 15 - k0 >= a.window);
+    const __nv_bfloat16* kt_s = k_s + st * kBK * P;
+    const __nv_bfloat16* vt_s = v_s + st * kBK * P;
+
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < kBK / 16; ++np) {
+        uint32_t kb[4];  // B fragments of key n-tiles 2 np and 2 np + 1
+        mma::ldmatrix_x4(kb, kt_s + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + ks * 16 +
+                                 ((lane >> 3) & 1) * 8);
+        mma::mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
+        mma::mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+      }
+    }
+
+    // online softmax on rows wq0 + g (e = 0, 1) and wq0 + g + 8 (e = 2, 3),
+    // kept in raw scores: the scale goes into the exponent's FFMA.  Only
+    // a tile that crosses the diagonal, the window's edge or S masks.
+    if (need_mask) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = wq0 + g + (e >> 1) * 8, key = k0 + j * 8 + 2 * c + (e & 1);
+          if (!(key <= row && key < a.S && (a.window <= 0 || row - key < a.window)))
+            s[j][e] = kNegInf;
+        }
+    }
+    float mx[2] = {kNegInf, kNegInf}, alpha[2], mb[2];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = mma::exp2_approx((m[i] - m_new) * scale_log2);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+      // a row with no unmasked key yet: every weight exp2(-inf) = 0
+      mb[i] = m_new == kNegInf ? __int_as_float(0x7f800000) : m_new * scale_log2;
+    }
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = mma::exp2_approx(fmaf(s[j][e], scale_log2, -mb[e >> 1]));
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V: P's accumulator fragments of key n-tiles 2 kk, 2 kk + 1
+    // are the A fragment of key k-step kk
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t pa[4] = {mma::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              mma::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              mma::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              mma::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t vb[4];  // B fragments of output n-tiles 2 dp and 2 dp + 1
+        mma::ldmatrix_x4_trans(vb, vt_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                                       dp * 16 + (lane >> 4) * 8);
+        mma::mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        mma::mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = wq0 + g + 8 * i;
+    if (row >= a.S) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow = og + row * a.so[1] + 2 * c;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          mma::pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+  }
+}
+
+// ------------------------------------------------------------ fp32 route
+
+constexpr int kF32BQ = 64;     // queries per block
+
+constexpr size_t f32_smem_bytes(int hd) {
+  return sizeof(float) * ((size_t)kF32BQ * (hd + 1) + (size_t)kBK * (hd + 1) +
+                          (size_t)kBK * hd + (size_t)kF32BQ * (kBK + 1));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
+  extern __shared__ float f32_smem[];
   constexpr int QLD = HD + 1;
   constexpr int PLD = kBK + 1;
   constexpr int CPT = HD / 16;  // output columns per thread
-  float* q_s = smem;             // kBQ x QLD
-  float* k_s = q_s + kBQ * QLD;  // kBK x QLD
+  float* q_s = f32_smem;              // kF32BQ x QLD
+  float* k_s = q_s + kF32BQ * QLD;    // kBK x QLD
   float* v_s = k_s + kBK * QLD;  // kBK x HD
-  float* p_s = v_s + kBK * HD;   // kBQ x PLD
+  float* p_s = v_s + kBK * HD;        // kF32BQ x PLD
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kF32BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int g = h / (a.H / a.KV);
-  const T* qg = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[2];
-  const T* kg = static_cast<const T*>(a.k) + b * a.sk[0] + g * a.sk[2];
-  const T* vg = static_cast<const T*>(a.v) + b * a.sv[0] + g * a.sv[2];
-  T* og = static_cast<T*>(a.o) + b * a.so[0] + h * a.so[2];
+  const float* qg = static_cast<const float*>(a.q) + b * a.sq[0] + h * a.sq[2];
+  const float* kg = static_cast<const float*>(a.k) + b * a.sk[0] + g * a.sk[2];
+  const float* vg = static_cast<const float*>(a.v) + b * a.sv[0] + g * a.sv[2];
+  float* og = static_cast<float*>(a.o) + b * a.so[0] + h * a.so[2];
 
-  for (int i = tid; i < kBQ * HD; i += kThreads) {
+  for (int i = tid; i < kF32BQ * HD; i += kThreads) {
     const int r = i / HD, d = i % HD, s = q0 + r;
-    q_s[r * QLD + d] = s < a.S ? to_f32(qg[s * a.sq[1] + d]) : 0.f;
+    q_s[r * QLD + d] = s < a.S ? qg[s * a.sq[1] + d] : 0.f;
   }
 
   float acc[4][CPT], m[4], l[4];
@@ -97,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
   }
 
   // key tiles holding an unmasked key for some row of this query tile
-  const int q_last = min(q0 + kBQ, a.S) - 1;
+  const int q_last = min(q0 + kF32BQ, a.S) - 1;
   const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   for (int kt = k_first / kBK; kt <= q_last / kBK; ++kt) {
     const int k0 = kt * kBK;
@@ -105,8 +314,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int r = i / HD, d = i % HD, s = k0 + r;
       const bool in = s < a.S;
-      k_s[r * QLD + d] = in ? to_f32(kg[s * a.sk[1] + d]) : 0.f;
-      v_s[r * HD + d] = in ? to_f32(vg[s * a.sv[1] + d]) : 0.f;
+      k_s[r * QLD + d] = in ? kg[s * a.sk[1] + d] : 0.f;
+      v_s[r * HD + d] = in ? vg[s * a.sv[1] + d] : 0.f;
     }
     __syncthreads();
 
@@ -178,42 +387,44 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Args a) {
     if (qp >= a.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) store(og + qp * a.so[1] + tx + 16 * c, acc[i][c] / den);
+    for (int c = 0; c < CPT; ++c) og[qp * a.so[1] + tx + 16 * c] = acc[i][c] / den;
   }
 }
 
-template <typename T, int HD>
-int launch(const Args& a, int B, cudaStream_t s) {
-  const size_t bytes = smem_bytes(HD);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((a.S + kBQ - 1) / kBQ), (unsigned)a.H, (unsigned)B);
-  flash_fwd<T, HD><<<grid, kThreads, bytes, s>>>(a);
+template <int HD>
+int launch(const Args& a, int B, int dtype, cudaStream_t s) {
+  if (dtype == 0) {
+    const size_t bytes = f32_smem_bytes(HD);
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((a.S + kF32BQ - 1) / kF32BQ), (unsigned)a.H, (unsigned)B);
+    flash_fwd_f32<HD><<<grid, kThreads, bytes, s>>>(a);
+  } else {
+    const size_t bytes = bf16_smem_bytes<HD>();
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((a.S + kBQ - 1) / kBQ), (unsigned)a.H, (unsigned)B);
+    flash_fwd_bf16<HD><<<grid, kThreads, bytes, s>>>(a);
+  }
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_hd(const Args& a, int B, int hd, cudaStream_t s) {
-  switch (hd) {
-    case 32: return launch<T, 32>(a, B, s);
-    case 64: return launch<T, 64>(a, B, s);
-    case 128: return launch<T, 128>(a, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  strides: 12
 // element strides, (b, s, head) of q, k, v, o in that order; the head
-// dim is unit-stride in all four.  window <= 0 means no window.
-// Returns the CUDA error of the launch (0 on success).
+// dim is unit-stride in all four.  For bfloat16 every row of q, k, v
+// must start 16-byte aligned (base pointers and strides), and o's rows
+// 4-byte aligned.  window <= 0 means no window.  Returns the CUDA error
+// of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int S, int H, int KV, int hd,
                                    const long long* strides, int window, float scale,
                                    void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
@@ -231,7 +442,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   a.window = window;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_hd<float>(a, B, hd, s);
-  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(a, B, hd, s);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 32: return launch<32>(a, B, dtype, s);
+    case 64: return launch<64>(a, B, dtype, s);
+    case 128: return launch<128>(a, B, dtype, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one CUDA C++ file under ``repro_torch/csrc/`` with a
-plain C interface.  At first use it is compiled with ``nvcc`` for Hopper
+plain C interface; the ``*.cuh`` headers beside them hold shared device
+code.  At first use it is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library under ``build/repro_torch_kernels/``
 at the root of the checkout and loaded with ``ctypes``.  The library's
-name carries a hash of the source and the flags, so an edited source is
-never served from a stale build.  ``--use_fast_math`` is deliberately
+name carries a hash of the source, the headers and the flags, so an
+edited source is never served from a stale build.  ``--use_fast_math`` is deliberately
 absent: ``topk_quant`` is bit-exact with its reference only under IEEE
 division and round-to-nearest conversions.
 
@@ -56,9 +57,16 @@ def require_hopper() -> None:
 
 def _paths(name: str):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     so = BUILD_DIR / f"lib{name}-{digest}.so"
     return src, so, so.with_suffix(".log")
+
+
+def library_path(name: str) -> Path:
+    """Where the built shared library of one kernel lies (built or not)."""
+    return _paths(name)[1]
 
 
 def build(names=KERNELS) -> dict:

@@ -8,8 +8,13 @@ they come out of the attention layer's projections and returns
 ``csrc/flash_attention.cu``, which reads all three through their strides
 and maps query head h to kv head ``h // (H // KV)``, so nothing is
 repeated or transposed; any S works (the kernel masks the ragged edge).
-CPU tensors take the plain version in ``ref.py``.  Nothing else falls
-back: a CUDA tensor the kernel does not take raises.
+bf16 inputs take the tensor-core route, whose 16-byte asynchronous
+copies need every row of q, k and v 16-byte aligned: a tensor whose base
+pointer or (b, s, head) strides do not allow that is first copied to a
+contiguous one (``needs_copy``).  The strided views of a fused qkv
+projection are aligned and read in place.  CPU tensors take the plain
+version in ``ref.py``.  Nothing else falls back: a CUDA tensor the
+kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -38,6 +43,19 @@ def _kernel():
     return fn
 
 
+def needs_copy(x) -> bool:
+    """Whether the kernel cannot read ``x`` (B, S, heads, hd) in place:
+    the head dim must be unit-stride, and for bf16 (16-byte cp.async
+    rows) the base pointer and the (b, s, head) strides must be whole
+    multiples of 16 bytes.  The fp32 route reads single elements."""
+    if x.stride(-1) != 1:
+        return True
+    if x.dtype != torch.bfloat16:
+        return False
+    esize = x.element_size()
+    return x.data_ptr() % 16 != 0 or any(st * esize % 16 for st in x.stride()[:3])
+
+
 def _launch(q, k, v, window):
     global launches
     if q.dtype not in _DTYPES:
@@ -49,7 +67,8 @@ def _launch(q, k, v, window):
     if max(B, H) > 65535:
         raise ValueError(f"flash_attention takes at most 65535 batch rows and heads (grid), "
                          f"got B={B}, H={H}")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    q, k, v = (x.clone(memory_format=torch.contiguous_format) if needs_copy(x) else x
+               for x in (q, k, v))
     fn = _kernel()
     with torch.cuda.device(q.device):
         out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)

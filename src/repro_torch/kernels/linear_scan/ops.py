@@ -6,8 +6,13 @@ bonus u (H, K) and an optional fp32 initial state (B, H, K, V), and
 returns y (B, S, H, V) in v's dtype with the fp32 final state, which the
 decode cache needs.  CUDA tensors launch the kernel in
 ``csrc/linear_scan.cu``, which reads every input through its strides and
-indexes u by head; CPU tensors take the plain version in ``ref.py``.
-Nothing else falls back: a CUDA tensor the kernel does not take raises.
+indexes u by head.  bf16 q/k/v take the tensor-core route, whose 16-byte
+asynchronous copies need every row of q, k, v and la 16-byte aligned and
+K, V multiples of 8: ``kernel_operands`` zero-pads K and V and copies a
+view whose base pointer or (b, s, head) strides do not allow that to a
+contiguous one; the projections of the RWKV6 layer are read in place.
+CPU tensors take the plain version in ``ref.py``.  Nothing else falls
+back: a CUDA tensor the kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.linear_scan import ref
@@ -35,6 +41,44 @@ def _kernel():
     return fn
 
 
+def needs_copy(x, rows16: bool) -> bool:
+    """Whether the kernel cannot read ``x`` (B, S, heads, n) in place: the
+    last dim must be unit-stride, and on the bf16 route (``rows16``:
+    16-byte cp.async rows of q, k, v and la) the base pointer and the
+    (b, s, head) strides must be whole multiples of 16 bytes.  The fp32
+    route reads single elements."""
+    if x.stride(-1) != 1:
+        return True
+    if not rows16:
+        return False
+    esize = x.element_size()
+    return x.data_ptr() % 16 != 0 or any(st * esize % 16 for st in x.stride()[:3])
+
+
+def kernel_operands(q, k, v, la, u=None, initial_state=None):
+    """What the kernel reads in place of (q, k, v, la, u, initial_state).
+    On the bf16 route K and V are zero-padded to multiples of 8 (u and the
+    initial state alike): zero q, k and v entries add nothing to y or to
+    the state, whose padded rows and columns stay zero, so the wrapper
+    slices y and the final state back.  Then each of q, k, v, la that
+    ``needs_copy`` is copied to a contiguous tensor."""
+    rows16 = v.dtype == torch.bfloat16
+    pk, pv = (-q.shape[-1] % 8, -v.shape[-1] % 8) if rows16 else (0, 0)
+    if pk or pv:
+        q, k, la = (F.pad(x, (0, pk)) for x in (q, k, la))
+        v = F.pad(v, (0, pv))
+        u = None if u is None else F.pad(u, (0, pk))
+        if initial_state is not None:
+            initial_state = F.pad(initial_state, (0, pv, 0, pk))
+    q, k, v, la = (x.clone(memory_format=torch.contiguous_format) if needs_copy(x, rows16)
+                   else x for x in (q, k, v, la))
+    if u is not None:
+        u = u.contiguous()
+    if initial_state is not None:
+        initial_state = initial_state.contiguous()
+    return q, k, v, la, u, initial_state
+
+
 def _launch(q, k, v, la, u, include_current, initial_state):
     global launches
     if v.dtype not in _DTYPES:
@@ -46,26 +90,25 @@ def _launch(q, k, v, la, u, include_current, initial_state):
     if max(B, H) > 65535:
         raise ValueError(f"linear_scan takes at most 65535 batch rows and heads (grid), "
                          f"got B={B}, H={H}")
-    q, k, v, la = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, la))
-    if u is not None:
-        u = u.contiguous()
-    if initial_state is not None:
-        initial_state = initial_state.contiguous()
+    q, k, v, la, u, initial_state = kernel_operands(q, k, v, la, u, initial_state)
+    Kk, Vk = q.shape[-1], v.shape[-1]
     fn = _kernel()
     with torch.cuda.device(q.device):
-        y = torch.empty((B, S, H, V), dtype=v.dtype, device=v.device)
-        state = torch.empty((B, H, K, V), dtype=torch.float32, device=v.device)
+        y = torch.empty((B, S, H, Vk), dtype=v.dtype, device=v.device)
+        state = torch.empty((B, H, Kk, Vk), dtype=torch.float32, device=v.device)
         strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                            *la.stride()[:3], *y.stride()[:3])
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(),
                  None if u is None else u.data_ptr(),
                  None if initial_state is None else initial_state.data_ptr(),
-                 y.data_ptr(), state.data_ptr(), _DTYPES[v.dtype], B, S, H, K, V,
+                 y.data_ptr(), state.data_ptr(), _DTYPES[v.dtype], B, S, H, Kk, Vk,
                  int(include_current), ctypes.addressof(strides),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"linear_scan kernel launch failed: CUDA error {err}")
     launches += 1
+    if (Kk, Vk) != (K, V):
+        return y[..., :V].contiguous(), state[:, :, :K, :V].contiguous()
     return y, state
 
 

@@ -8,12 +8,18 @@ recurrence.  It is the path taken on CPU tensors, and what
 
 with ``la`` clipped to [LOG_A_MIN, 0], as ``repro.kernels.linear_scan.ref``
 computes it.  Every exponent is <= 0, so no input overflows it.
+
+``chunked`` is a plain model of the bf16 kernel's chunked arithmetic
+(``csrc/linear_scan.cu``), for the tests only.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 LOG_A_MIN = -8.0
+CHUNK, SUBS = 32, (16, 8)   # the bf16 kernel's chunk and its two levels of sub-blocks
+                            # (csrc/linear_scan.cu)
 
 
 def scan(q, k, v, log_a, u=None, *, include_current: bool = True, initial_state=None):
@@ -56,3 +62,83 @@ def linear_scan(q, k, v, la, u=None, *, include_current: bool = True):
     y, _ = recurrence(q[:, :, None], k[:, :, None], v[:, :, None], la[:, :, None],
                       None if u is None else u[:, None], include_current=include_current)
     return y[:, :, 0]
+
+
+def chunked(q, k, v, la, u=None, *, include_current: bool = True, initial_state=None,
+            exponents=None):
+    """The bf16 kernel's chunked form in fp32, on the layer layout (as
+    ``recurrence``).  With cum the chunk's cumulative clamped log-decay
+    and x = cum (Mamba2) or cum - la (RWKV6, taken as cum one step back,
+    0 at the chunk's first step, so that x_t - cum_s <= 0 holds exactly
+    for s < t, as in the kernel), a chunk's y is the readout
+    (q exp(x)) S_in plus the scores A times v, and the state becomes
+    exp(cum_C) S_in + (k exp(cum_C - cum))^T v.  A chunk of CHUNK steps
+    is cut into blocks of SUBS[0]; a pair of them (i after j) factors its
+    decay about the step r just before block i, as q exp(x - cum_r)
+    times k exp(cum_r - cum_s), and each diagonal block is cut again by
+    SUBS[1:]; the last level takes the
+    masked exp(x_t - cum_s) elementwise (the kernel forms it there as a
+    running product of the decays exp(la) <= 1, the same number).  Every exponent it takes is
+    appended (its maximum) to ``exponents`` when a list is given, so a
+    test can show that none is positive.  Returns (y in v's dtype, fp32
+    final state)."""
+    B, S, H, K = q.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    pad = (-S) % CHUNK
+
+    def padded(x):                                   # zero steps past S (la 0: no decay)
+        return F.pad(x.to(f32), (0, 0, 0, 0, 0, pad))
+
+    q, k, v = padded(q), padded(k), padded(v)
+    la = padded(torch.clamp(la.to(f32), LOG_A_MIN, 0.0))
+    state = (initial_state.to(f32) if initial_state is not None
+             else torch.zeros((B, H, K, V), dtype=f32, device=q.device))
+    uu = u.to(f32) if u is not None else torch.ones((H, K), dtype=f32, device=q.device)
+
+    def exp(x, taken=None):
+        if exponents is not None:
+            kept = x if taken is None else x[taken]
+            if kept.numel():
+                exponents.append(float(kept.max()))
+        return torch.exp(x if taken is None else x.masked_fill(~taken, -float("inf")))
+
+    def scores(qc, kc, x, cum, lo, n, sizes, out):
+        """A[lo:lo+n, lo:lo+n] of one chunk into out (B, H, C, C)."""
+        blk = slice(lo, lo + n)
+        if not sizes:                                # masked exponent elementwise
+            ts = torch.arange(n, device=q.device)
+            taken = (ts[:, None] >= ts[None, :]) if include_current else (ts[:, None] > ts[None, :])
+            diff = x[:, blk, None] - cum[:, None, blk]               # (B, t, s, H, K)
+            e = exp(diff, taken[None, :, :, None, None].expand_as(diff))
+            a = torch.einsum("bthk,bshk,btshk->bhts", qc[:, blk], kc[:, blk], e)
+            if not include_current:                  # RWKV6 bonus on the diagonal
+                a = a + torch.diag_embed(
+                    torch.einsum("bthk,hk,bthk->bht", qc[:, blk], uu, kc[:, blk]))
+            out[:, :, blk, blk] = a
+            return
+        size = sizes[0]
+        for i in range(n // size):
+            ti = slice(lo + i * size, lo + (i + 1) * size)
+            r = lo + i * size - 1
+            for j in range(i):
+                tj = slice(lo + j * size, lo + (j + 1) * size)
+                qt = qc[:, ti] * exp(x[:, ti] - cum[:, r:r + 1])
+                kt = kc[:, tj] * exp(cum[:, r:r + 1] - cum[:, tj])
+                out[:, :, ti, tj] = torch.einsum("bthk,bshk->bhts", qt, kt)
+            scores(qc, kc, x, cum, lo + i * size, size, sizes[1:], out)
+
+    ys = []
+    for c0 in range(0, S + pad, CHUNK):
+        qc, kc, vc, lc = (x[:, c0:c0 + CHUNK] for x in (q, k, v, la))   # (B, C, H, .)
+        cum = torch.cumsum(lc, dim=1)
+        x = cum if include_current else F.pad(cum[:, :-1], (0, 0, 0, 0, 1, 0))
+        y = torch.einsum("bthk,bhkv->bthv", qc * exp(x), state)
+        a = torch.zeros((B, H, CHUNK, CHUNK), dtype=f32, device=q.device)
+        scores(qc, kc, x, cum, 0, CHUNK, SUBS, a)
+        ys.append(y + torch.einsum("bhts,bshv->bthv", a, vc))
+        tot = cum[:, -1]                                             # (B, H, K)
+        state = (exp(tot)[..., None] * state
+                 + torch.einsum("bshk,bshv->bhkv", kc * exp(tot[:, None] - cum), vc))
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y.to(v.dtype), state

@@ -105,6 +105,55 @@ class TestFlashAttentionPlain:
             fa_ops.gqa_flash_attention(q, q, q, window=0)
 
 
+def _qkv_views(B, S, H, KV, hd, dtype, lead=0, pad=0):
+    """q, k, v as views of one fused (B, S, lead + (H + 2 KV) hd + pad)
+    buffer, as a fused qkv projection gives them."""
+    buf = torch.zeros(B, S, lead + (H + 2 * KV) * hd + pad, dtype=dtype)
+    w = buf[..., lead:lead + (H + 2 * KV) * hd].unflatten(-1, (H + 2 * KV, hd))
+    return w[:, :, :H], w[:, :, H:H + KV], w[:, :, H + KV:]
+
+
+class TestFlashAttentionLayout:
+    """The wrapper's decision to copy an input the bf16 kernel's 16-byte
+    cp.async rows cannot read in place (ops.needs_copy)."""
+
+    @pytest.mark.parametrize("case,want", [
+        ("contiguous", False), ("fused_qkv_views", False), ("offset_one_element", True),
+        ("row_stride_not_16_bytes", True), ("head_dim_strided", True),
+        ("fp32_offset_one_element", False), ("fp32_head_dim_strided", True)])
+    def test_needs_copy(self, case, want):
+        B, S, H, KV, hd = 2, 16, 4, 2, 32
+        bf = torch.bfloat16
+        if case == "contiguous":
+            xs = [torch.zeros(B, S, H, hd, dtype=bf)]
+        elif case == "fused_qkv_views":
+            xs = list(_qkv_views(B, S, H, KV, hd, bf))
+        elif case == "offset_one_element":       # base 2 bytes past an aligned one
+            xs = [torch.zeros(B * S * H * hd + 1, dtype=bf)[1:].view(B, S, H, hd)]
+        elif case == "row_stride_not_16_bytes":  # rows of (H + 2 KV) hd + 1 elements
+            xs = list(_qkv_views(B, S, H, KV, hd, bf, pad=1))
+        elif case == "head_dim_strided":
+            xs = [torch.zeros(B, S, H, 2 * hd, dtype=bf)[..., ::2]]
+        elif case == "fp32_offset_one_element":  # the fp32 route reads single elements
+            xs = list(_qkv_views(B, S, H, KV, hd, torch.float32, lead=1, pad=1))
+        else:
+            xs = [torch.zeros(B, S, H, 2 * hd)[..., ::2]]
+        assert [fa_ops.needs_copy(x) for x in xs] == [want] * len(xs)
+        if want:   # what the wrapper hands the kernel instead
+            assert not any(fa_ops.needs_copy(x.clone(memory_format=torch.contiguous_format))
+                           for x in xs)
+
+    def test_unaligned_views_give_the_contiguous_result(self):
+        B, S, H, KV, hd = 1, 40, 4, 2, 32
+        q, k, v = _qkv_views(B, S, H, KV, hd, torch.float32, lead=1, pad=3)
+        rs = np.random.RandomState(8)
+        for x in (q, k, v):
+            x.copy_(torch.from_numpy(rs.randn(*x.shape).astype(np.float32)))
+        got = fa_ops.gqa_flash_attention(q, k, v, window=9)
+        want = fa_ops.gqa_flash_attention(*(x.contiguous() for x in (q, k, v)), window=9)
+        assert torch.equal(got, want)
+
+
 # ----------------------------------------------------------- linear scan ---
 
 def scan_inputs(seed, BH, S, K, Vd, dtype="float32", la_scale=0.2):
@@ -202,6 +251,148 @@ class TestLinearScanPlain:
             ls_ops.recurrence(q, q, q, q, initial_state=torch.zeros(1, 2, 8, 4))
 
 
+def _to_bh(x):
+    """(B, S, H, .) numpy -> (B*H, S, .), the reference oracle's layout."""
+    B, S, H = x.shape[:3]
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(B * H, S, -1))
+
+
+class TestLinearScanChunkedModel:
+    """ref.chunked, the plain model of the bf16 kernel's chunked form
+    (chunks of 32, cut at 16 and again at 8 steps, the decay of each pair
+    of blocks factored about the step between them), against the
+    sequential oracles."""
+
+    @staticmethod
+    def inputs(seed, B, S, H, K, Vd, la):
+        rs = np.random.RandomState(seed)
+        q, k = (rs.randn(B, S, H, K).astype(np.float32) for _ in range(2))
+        v = rs.randn(B, S, H, Vd).astype(np.float32)
+        if la == "clamp":     # at or below the clamp everywhere
+            la = (-8.0 - 4.0 * np.abs(rs.randn(B, S, H, K))).astype(np.float32)
+        else:
+            la = (-np.abs(rs.randn(B, S, H, K)) * 0.5).astype(np.float32)
+        u = np.abs(rs.randn(H, K)).astype(np.float32)
+        s0 = rs.randn(B, H, K, Vd).astype(np.float32)
+        return q, k, v, la, u, s0
+
+    @pytest.mark.parametrize("S", [31, 33, 65, 1000])
+    @pytest.mark.parametrize("form", ["mamba", "rwkv"])
+    def test_matches_sequential_oracles(self, S, form):
+        B, H, K, Vd = 2, 2, 8, 8
+        q, k, v, la, u, s0 = self.inputs(40 + S, B, S, H, K, Vd, "model")
+        cur = form == "mamba"
+        uu = None if cur else u
+        T = [torch.from_numpy(x) for x in (q, k, v, la)]
+        tu = None if uu is None else torch.from_numpy(uu)
+        exps = []
+        y, st = ls_ref.chunked(*T, tu, include_current=cur,
+                               initial_state=torch.from_numpy(s0), exponents=exps)
+        wy, ws = ls_ref.recurrence(*T, tu, include_current=cur,
+                                   initial_state=torch.from_numpy(s0))
+        close(y, wy, 2e-4)
+        close(st, ws, 2e-4)
+        assert exps and max(exps) <= 0.0
+        # the JAX package's oracle has no initial state: compare from zeros
+        y0, _ = ls_ref.chunked(*T, tu, include_current=cur)
+        jy = jls_ref.linear_scan(*(jnp.asarray(_to_bh(x)) for x in (q, k, v, la)),
+                                 None if uu is None else jnp.asarray(np.tile(uu, (B, 1))),
+                                 include_current=cur)
+        close(_to_bh(y0.numpy()), jy, 2e-4)
+
+    @pytest.mark.parametrize("form", ["mamba", "rwkv"])
+    def test_finite_at_the_clamp_where_the_factorised_form_is_not(self, form):
+        """la <= -8 everywhere: a chunk of 32 sums to -256 or less.  The
+        chunked model stays finite and takes no positive exponent; the
+        reference kernel's k * exp(-cum) overflows there."""
+        B, S, H, K, Vd = 1, 64, 2, 8, 8
+        q, k, v, la, u, s0 = self.inputs(7, B, S, H, K, Vd, "clamp")
+        cur = form == "mamba"
+        uu = None if cur else u
+        T = [torch.from_numpy(x) for x in (q, k, v, la)]
+        tu = None if uu is None else torch.from_numpy(uu)
+        exps = []
+        y, st = ls_ref.chunked(*T, tu, include_current=cur,
+                               initial_state=torch.from_numpy(s0), exponents=exps)
+        assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+        assert max(exps) <= 0.0 and min(exps) <= -256.0
+        wy, ws = ls_ref.recurrence(*T, tu, include_current=cur,
+                                   initial_state=torch.from_numpy(s0))
+        close(y, wy, 2e-4)
+        close(st, ws, 2e-4)
+        J = [jnp.asarray(_to_bh(x)) for x in (q, k, v, la)]
+        ju = None if uu is None else jnp.asarray(np.tile(uu, (B, 1)))
+        y0, _ = ls_ref.chunked(*T, tu, include_current=cur)
+        close(_to_bh(y0.numpy()), jls_ref.linear_scan(*J, ju, include_current=cur), 2e-4)
+        pallas = jls_kernel.linear_scan(*J, ju, chunk=32, include_current=cur)
+        assert not bool(np.isfinite(np.asarray(pallas)).all())
+
+
+
+class TestLinearScanLayout:
+    """The wrapper's preparation of what the bf16 kernel's 16-byte
+    cp.async rows read (ops.needs_copy, ops.kernel_operands)."""
+
+    @pytest.mark.parametrize("case,want", [
+        ("contiguous", False), ("layer_projection", False), ("offset_one_element", True),
+        ("row_stride_not_16_bytes", True), ("last_dim_strided", True),
+        ("la_offset_one_float", True), ("fp32_offset_one_element", False)])
+    def test_needs_copy(self, case, want):
+        B, S, H, K = 2, 16, 3, 64
+        bf = torch.bfloat16
+        rows16 = case != "fp32_offset_one_element"
+        if case == "contiguous":
+            x = torch.zeros(B, S, H, K, dtype=bf)
+        elif case == "layer_projection":        # models/recurrence.py: (B, S, H*K) -> heads
+            x = torch.zeros(B, S, H * K, dtype=bf).reshape(B, S, H, K)
+        elif case == "offset_one_element":      # base 2 bytes past an aligned one
+            x = torch.zeros(B * S * H * K + 1, dtype=bf)[1:].view(B, S, H, K)
+        elif case == "row_stride_not_16_bytes":
+            x = torch.zeros(B, S, H, K + 1, dtype=bf)[..., :K]
+        elif case == "last_dim_strided":
+            x = torch.zeros(B, S, H, 2 * K, dtype=bf)[..., ::2]
+        elif case == "la_offset_one_float":     # la is fp32 beside bf16 q/k/v
+            x = torch.zeros(B * S * H * K + 1)[1:].view(B, S, H, K)
+        else:                                   # the fp32 route reads single elements
+            x = torch.zeros(B * S * H * K + 1)[1:].view(B, S, H, K)
+        assert ls_ops.needs_copy(x, rows16) == want
+        if want:   # what the wrapper hands the kernel instead
+            assert not ls_ops.needs_copy(x.clone(memory_format=torch.contiguous_format), rows16)
+
+    @pytest.mark.parametrize("layout", ["K12_V20", "offset_views", "fp32_K12_V20"])
+    @pytest.mark.parametrize("form", ["mamba", "rwkv"])
+    def test_kernel_operands_give_the_same_result(self, layout, form):
+        """Padded and copied operands, sliced back as the wrapper does,
+        give the plain version's y and final state on the caller's."""
+        B, S, H = 2, 37, 3
+        K, V = (12, 20) if layout != "offset_views" else (64, 64)
+        dt = torch.float32 if layout.startswith("fp32") else torch.bfloat16
+        rs = np.random.RandomState(13)
+        if layout == "offset_views":   # q, k, v 2 bytes off a 16-byte boundary
+            buf = torch.from_numpy(rs.randn(B, S, H, 1 + 3 * K).astype(np.float32)).to(dt)
+            q, k, v = (buf[..., 1 + K * i:1 + K * (i + 1)] for i in range(3))
+        else:
+            q, k = (torch.from_numpy(rs.randn(B, S, H, K).astype(np.float32)).to(dt)
+                    for _ in range(2))
+            v = torch.from_numpy(rs.randn(B, S, H, V).astype(np.float32)).to(dt)
+        la = -torch.from_numpy(np.abs(rs.randn(B, S, H, K)).astype(np.float32))
+        u = torch.from_numpy(rs.rand(H, K).astype(np.float32)) if form == "rwkv" else None
+        s0 = torch.from_numpy(rs.randn(B, H, K, V).astype(np.float32))
+        kq, kk, kv, kla, ku, ks0 = ls_ops.kernel_operands(q, k, v, la, u, s0)
+        rows16 = dt == torch.bfloat16
+        assert not any(ls_ops.needs_copy(x, rows16) for x in (kq, kk, kv, kla))
+        if rows16:
+            assert kq.shape[-1] % 8 == 0 and kv.shape[-1] % 8 == 0
+        else:
+            assert (kq.shape[-1], kv.shape[-1]) == (K, V)
+        cur = form == "mamba"
+        y, st = ls_ref.recurrence(kq, kk, kv, kla, ku, include_current=cur, initial_state=ks0)
+        wy, ws = ls_ref.recurrence(q, k, v, la, u, include_current=cur, initial_state=s0)
+        torch.testing.assert_close(y[..., :V], wy)
+        torch.testing.assert_close(st[:, :, :K, :V], ws)
+        assert not st[:, :, K:].any() and not st[..., V:].any()   # padding stays zero
+
+
 # ------------------------------------------------------------ on the card ---
 
 @pytest.fixture
@@ -259,3 +450,123 @@ def test_gpu_linear_scan_matches_plain(cuda, B, S, H, K, V, form, dtype):
     wy, ws = ls_ref.recurrence(q, k, v, la, u, include_current=cur, initial_state=s0)
     torch.testing.assert_close(y.float(), wy.float(), rtol=LS_TOL[dtype], atol=LS_TOL[dtype])
     torch.testing.assert_close(s, ws, rtol=2e-4, atol=2e-4)
+
+
+# the new tiles' edges: flash_attention's 128-query and 64-key tiles,
+# linear_scan's 32-step chunks and 16-step sub-chunks
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 17, 127, 128, 129, 2047])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_gpu_flash_attention_bf16_tile_edges(cuda, S, hd):
+    B, H, KV = 1, 24, 2                      # starcoder2's group of G = 12
+    g = torch.Generator(device=cuda).manual_seed(S)
+    bf = torch.bfloat16
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(bf)
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=cuda).to(bf) for _ in range(2))
+    got = fa_ops.gqa_flash_attention(q, k, v)
+    want = fa_ref.gqa_attention(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL["bfloat16"],
+                               atol=FA_TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window", [(300, 1), (300, 37), (300, 100), (513, 191), (129, 64),
+                                      (2047, 1000)])
+def test_gpu_flash_attention_bf16_windows_ending_inside_a_tile(cuda, S, window):
+    B, H, KV, hd = 2, 24, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(window)
+    bf = torch.bfloat16
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(bf)
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=cuda).to(bf) for _ in range(2))
+    got = fa_ops.gqa_flash_attention(q, k, v, window=window)
+    want = fa_ref.gqa_attention(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL["bfloat16"],
+                               atol=FA_TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_bf16_unaligned_view(cuda):
+    """Views whose rows start 2 bytes past a 16-byte boundary are copied
+    (ops.needs_copy) and give the contiguous inputs' result exactly."""
+    B, S, H, KV, hd = 2, 200, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    buf = torch.randn(B, S, 1 + (H + 2 * KV) * hd, generator=g, device=cuda).to(torch.bfloat16)
+    w = buf[..., 1:].unflatten(-1, (H + 2 * KV, hd))
+    q, k, v = w[:, :, :H], w[:, :, H:H + KV], w[:, :, H + KV:]
+    assert all(fa_ops.needs_copy(x) for x in (q, k, v))
+    before = fa_ops.launches
+    got = fa_ops.gqa_flash_attention(q, k, v, window=77)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = fa_ops.gqa_flash_attention(*(x.contiguous() for x in (q, k, v)), window=77)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got.float(), fa_ref.gqa_attention(q, k, v, window=77).float(),
+                               rtol=FA_TOL["bfloat16"], atol=FA_TOL["bfloat16"])
+
+
+def _scan_case(cuda, seed, B, S, H, K, V, form, la_kind, dt=torch.bfloat16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k = (torch.randn(B, S, H, K, generator=g, device=cuda).to(dt) for _ in range(2))
+    v = torch.randn(B, S, H, V, generator=g, device=cuda).to(dt)
+    if la_kind == "clamp":   # at or below the clamp everywhere
+        la = -8.0 - 4.0 * torch.rand(B, S, H, K, generator=g, device=cuda)
+    else:                    # reaches the clamp now and then
+        la = -torch.rand(B, S, H, K, generator=g, device=cuda) * 9.0
+    u = torch.rand(H, K, generator=g, device=cuda) if form == "rwkv" else None
+    s0 = torch.randn(B, H, K, V, generator=g, device=cuda)
+    return q, k, v, la, u, s0
+
+
+def _check_scan(q, k, v, la, u, s0, cur):
+    before = ls_ops.launches
+    y, s = ls_ops.recurrence(q, k, v, la, u, include_current=cur, initial_state=s0)
+    torch.cuda.synchronize()
+    assert ls_ops.launches == before + 1 and y.dtype == v.dtype
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    wy, ws = ls_ref.recurrence(q, k, v, la, u, include_current=cur, initial_state=s0)
+    tol = LS_TOL["bfloat16" if v.dtype == torch.bfloat16 else "float32"]
+    torch.testing.assert_close(y.float(), wy.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, ws, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 1000])
+@pytest.mark.parametrize("form", ["mamba", "rwkv"])
+def test_gpu_linear_scan_bf16_chunk_edges(cuda, S, form):
+    _check_scan(*_scan_case(cuda, S, 2, S, 3, 64, 64, form, "model"), form == "mamba")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["mamba", "rwkv"])
+def test_gpu_linear_scan_bf16_at_the_clamp(cuda, form):
+    _check_scan(*_scan_case(cuda, 9, 2, 257, 3, 64, 64, form, "clamp"), form == "mamba")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("form", ["mamba", "rwkv"])
+def test_gpu_linear_scan_bf16_v_slices(cuda, split, form):
+    """B * H on both sides of the launch's rule: two 32-column V slices
+    per (b, h) where 2 B H blocks find an SM each, else one block."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    H = 4
+    B = sms // (2 * H) if split else sms // H + 1
+    _check_scan(*_scan_case(cuda, 14, B, 45, H, 64, 64, form, "model"), form == "mamba")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["K12_V20", "offset_views"])
+def test_gpu_linear_scan_bf16_rows_not_16_byte_aligned(cuda, layout):
+    """K, V not multiples of 8, or views 2 bytes off a 16-byte boundary:
+    the wrapper zero-pads K and V and copies the views (kernel_operands)
+    before the kernel's 16-byte cp.async reads them."""
+    if layout == "K12_V20":
+        q, k, v, la, u, s0 = _scan_case(cuda, 11, 2, 70, 3, 12, 20, "rwkv", "model")
+    else:
+        q, k, v, la, u, s0 = _scan_case(cuda, 12, 2, 70, 3, 64, 64, "rwkv", "model")
+        buf = torch.zeros(2, 70, 3, 1 + 3 * 64, dtype=torch.bfloat16, device=cuda)
+        for i, x in enumerate((q, k, v)):
+            buf[..., 1 + 64 * i:1 + 64 * (i + 1)] = x
+        q, k, v = (buf[..., 1 + 64 * i:1 + 64 * (i + 1)] for i in range(3))
+    _check_scan(q, k, v, la, u, s0, False)
