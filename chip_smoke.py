@@ -9,7 +9,8 @@ points.
     Federation(model="cnn", algorithm="vafl", compressor="topk0.1_int8",
                device="cuda").run(rounds=3, mode="round")
 
-   then afl on the same federation (kernels grad_diff_norm, topk_quant).
+   then afl on the same federation (kernels grad_diff_norm, and
+   topk_quant's device-side topk_int8 encode).
 2. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
    rwkv6_3b at their full published configurations (random weights from
    a seed): 4 prompts of 2048 tokens, 32 greedy tokens each (kernels
@@ -23,7 +24,12 @@ Run it from the root of a checkout:
 Before the main paths it counts the tensor-core instructions (HMMA,
 HGMMA) in each kernel's compiled functions (``cuobjdump -sass`` from
 nvcc's toolkit) and fails if a bf16 route of flash_attention or
-linear_scan has none.
+linear_scan has none.  It holds the topk_int8 encode bit-exact against
+its plain route on the CNN's and the MLP's trees, on each side of the
+resident route's limit, at 2^24 + 123 elements, on a tie-heavy input
+and on one whose k-th magnitude is 0, and the tree-level grad_diff_norm
+call against its plain version on the CNN's 22 stacked leaves, counting
+the CUDA kernels each call launches (``torch.profiler``).
 
 It exits non-zero, and prints no result, when a phase fails, when no
 CUDA device is visible, or when it is not inside a checkout.  The last
@@ -47,6 +53,12 @@ BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 on the tensor cores
 TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 on the tensor cores
 GD_SHAPES = [(7, 42698), (1, 2 ** 24 + 123)]   # main path: 7 clients x CNN params
 TQ_SIZES = [42698, 2 ** 24 + 123]
+RESIDENT_LIMIT = 8 * 13312 * 4   # elements of one leaf the encode's resident route takes
+GRAD_TREES = [("cnn", 7), ("one", 1)]   # tree_grad_diff_sq_norm cases: (leaves, W)
+# encode cases: (leaf layout, input); the first is the main path's update
+ENC_CASES = [("cnn", "randn"), ("mlp", "randn"), ("one", RESIDENT_LIMIT),
+             ("one", RESIDENT_LIMIT + 1), ("one", 2 ** 24 + 123), ("cnn", "ties"),
+             ("cnn", "sparse"), ("big", "ties"), ("big", "sparse")]
 TQ_OPS_PER_ELEM = 24             # 10 hash + 14 float/convert/select ops (csrc/topk_quant.cu)
 # flash_attention cases: (B, S, H, KV, hd, window, dtype); the first is
 # starcoder2_3b's prefill in serve(batch=4, prompt_len=2048), window 4096;
@@ -70,7 +82,18 @@ DESIGN = {("flash_attention", "bfloat16"): "mma.sync m16n8k16 bf16, cp.async 2-s
                                            "128-query x 64-key tiles (8 warps x 16 rows), Q and P "
                                            "in registers, raw-score softmax on ex2.approx",
           ("flash_attention", "float32"): "fp32 FMA on the CUDA cores, 64 x 64 tiles",
-          ("grad_diff_norm", "float32"): "two-stage row reduction, coalesced loads, no atomics",
+          ("grad_diff_norm", "float32"): "one launch over a table of stacked leaves, 16-byte "
+                                         "loads inside a leaf, the last block of a row sums its "
+                                         "partials (integer ticket), no float atomics",
+          ("topk_int8_encode", "resident"): "one launch: a cluster of up to 8 CTAs stages the update "
+                                            "in shared memory (cp.async), radix select 11/10/10 bits, "
+                                            "count, quantize, compact; merged through distributed "
+                                            "shared memory",
+          ("topk_int8_encode", "streaming"): "five launches: two histogram passes over the "
+                                             "update (integer atomics, last block selects; the "
+                                             "second gathers the candidate keys), a third and a "
+                                             "count over the candidates, a quantize-and-compact "
+                                             "pass",
           ("topk_quant", "float32"): "one elementwise pass, four elements a thread, counter-based "
                                      "hash",
           ("linear_scan", "bfloat16"): "chunks of 32 factored at 16 and 8 steps (no exponent > 0), "
@@ -251,9 +274,189 @@ def phase_topk_quant(rows: dict):
             "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.topk_quant(x, thr, scale, 7)),
             "plain_ms": cuda_ms(lambda: ref.topk_quant(x, thr, scale, 7)),
-            "bound_ms": bms, "bound_by": bby, "library_ms": None, "library_call": None,
-            "encode_ms": cuda_ms(lambda: TopKQuantCodec(0.1).encode({"x": x}, seed=3),
-                                 iters=20, warmup=3)}
+            "bound_ms": bms, "bound_by": bby, "library_ms": None, "library_call": None}
+
+
+def device_activity(fn) -> dict:
+    """What one call of ``fn`` ran on the card, from ``torch.profiler``:
+    {"kernels": [[name, device us], ...], "copies": [[name, us], ...]} in
+    launch order, with the names the profiler gives them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, copies = [], []
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            (copies if e.name.startswith(("Memcpy", "Memset")) else kernels).append(
+                [e.name, e.time_range.elapsed_us()])
+    return {"kernels": kernels, "copies": copies}
+
+
+def _device_kernels(fn, expected: int, what: str) -> dict:
+    """``device_activity`` of one call of ``fn``.  A reading with no
+    kernel at all (the profiler now and then drops a call's records) is
+    taken again, up to three times; a reading of another number of CUDA
+    kernels than ``expected`` fails, and so do three empty ones."""
+    for _ in range(3):
+        act = device_activity(fn)
+        if act["kernels"]:
+            if len(act["kernels"]) != expected:
+                fail(f"{what}: {len(act['kernels'])} CUDA kernels a call, expected "
+                     f"{expected}: {act}")
+            return act
+    fail(f"{what}: the profiler recorded no CUDA kernel in three calls")
+
+
+def _leaf_shapes(model: str) -> list:
+    """The leaves of the port's CNN or MLP in tree-flatten order."""
+    import torch
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.models.cnn import CNNConfig, MLPConfig, cnn_init, mlp_init
+    init = {"cnn": lambda g: cnn_init(CNNConfig(), g), "mlp": lambda g: mlp_init(MLPConfig(), g)}
+    return [tuple(x.shape) for x in tree_leaves(init[model](torch.Generator()))]
+
+
+def _encode_tree(layout, what, gen) -> dict:
+    """An update on the card: one leaf of ``what`` randn elements, or the
+    CNN's or MLP's leaves, or one leaf of 2^20 + 3 elements (the
+    streaming route), filled with randn, a tie-heavy draw
+    (randint(-3, 4) / 4) or a sparse one (3 % nonzero: the k-th magnitude
+    at frac 0.1 is 0)."""
+    import torch
+    if layout == "one":
+        return {"x": torch.randn(what, generator=gen, device="cuda")}
+    tree = {}
+    shapes = [(2 ** 20 + 3,)] if layout == "big" else _leaf_shapes(layout)
+    for i, shape in enumerate(shapes):
+        if what == "randn":
+            x = torch.randn(shape, generator=gen, device="cuda")
+        elif what == "ties":
+            x = torch.randint(-3, 4, shape, generator=gen, device="cuda").float() / 4
+        else:
+            x = torch.randn(shape, generator=gen, device="cuda")
+            x = x * (torch.rand(shape, generator=gen, device="cuda") < 0.03)
+        tree[f"p{i:02d}"] = x
+    return tree
+
+
+def phase_encode(rows: dict):
+    """The topk0.1_int8 encode on the card (``TopKQuantCodec.encode``, one
+    wrapper call of ``topk_int8_encode``) against its plain route
+    (``use_kernel=False``: torch.topk, the plain quantization,
+    torch.nonzero), bit for bit, with its time (``ms``: the whole call,
+    host copy of the planes included; ``device_ms``: its launches alone,
+    ``encode_on_device``), the CUDA kernels one call launches, and its
+    bytes bound (4n read, 5 a kept entry + 4 written)."""
+    import torch
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.compress.composed import TopKQuantCodec
+    from repro_torch.kernels.topk_quant import ops
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    codec, plain = TopKQuantCodec(0.1), TopKQuantCodec(0.1, use_kernel=False)
+    for layout, what in ENC_CASES:
+        tree = _encode_tree(layout, what, gen)
+        leaves = tree_leaves(tree)
+        n = sum(x.numel() for x in leaves)
+        case = f"{layout} {what}" + (f" ({len(leaves)} leaves, n = {n})" if layout != "one" else "")
+        before = ops.launches
+        got = codec.encode(tree, seed=0x5EED)
+        calls = ops.launches - before
+        want = plain.encode(tree, seed=0x5EED)
+        for plane in ("idx", "val"):
+            if not (got.planes[plane].dtype == want.planes[plane].dtype
+                    and got.planes[plane].shape == want.planes[plane].shape
+                    and (got.planes[plane] == want.planes[plane]).all()):
+                fail(f"topk_int8 encode {case}: {plane} plane differs from the plain route")
+        if got.nbytes != want.nbytes or got.meta["scale"] != want.meta["scale"]:
+            fail(f"topk_int8 encode {case}: nbytes/scale {got.nbytes}/{got.meta['scale']} vs "
+                 f"{want.nbytes}/{want.meta['scale']} on the plain route")
+        if calls != 1:
+            fail(f"topk_int8 encode {case}: {calls} wrapper calls for one encode")
+        dval = got.planes["val"].astype("int32") - want.planes["val"].astype("int32")
+        err = max(abs(got.meta["scale"] - want.meta["scale"]), int(abs(dval).max(initial=0)))
+        kept, k = len(got.planes["idx"]), ops.encode_k(0.1, n)
+        route, size = ops.encode_route([x.numel() for x in leaves])
+        act = _device_kernels(lambda: codec.encode(tree, seed=0x5EED),
+                              ops.cuda_launches_per_encode([x.numel() for x in leaves]),
+                              f"topk_int8 encode {case}")
+        say(f"[check] topk_int8 encode {case}: idx/val planes, scale and nbytes bit-exact "
+            f"({got.nbytes} bytes, {kept} kept of k = {k}); route {route} "
+            f"({size} {'CTAs' if route == 'resident' else 'blocks'}), device work a call "
+            f"(name, us): {act}")
+        big = n > RESIDENT_LIMIT
+        bms, bby = bound_ms(4 * n + 5 * kept + 4, 0)
+        rows[(layout, what)] = {
+            "name": "topk_int8_encode", "route": "cuda",
+            "source": "src/repro_torch/csrc/topk_quant.cu",
+            "replaces": "src/repro/compress/composed.py:42 (topk_threshold_scale, topk_quant_2d, "
+                        "np.flatnonzero)",
+            "case": case, "elements": n, "kept": kept, "k": k, "encode_route": route,
+            "max_abs_err": float(err),
+            "design": DESIGN[("topk_int8_encode", route)],
+            "cuda_launches_per_call": len(act["kernels"]),
+            "device_activity": act,
+            "ms": cuda_ms(lambda: codec.encode(tree, seed=3), *((20, 3) if big else (200, 20))),
+            "device_ms": cuda_ms(lambda: ops.encode_on_device(leaves, 0.1, 3),
+                                 *((20, 3) if big else (200, 20))),
+            "plain_ms": cuda_ms(lambda: plain.encode(tree, seed=3), *((10, 2) if big else (50, 5))),
+            "bound_ms": bms, "bound_by": bby}
+        row = rows[(layout, what)]
+        row["bound_share"], row["device_bound_share"] = bms / row["ms"], bms / row["device_ms"]
+
+
+def _stacked_pair(layout: str, w: int, gen) -> tuple:
+    """Two stacked fp32 trees on the card, W = ``w`` rows of the CNN's
+    leaves or of one 2^24 + 123 leaf."""
+    import torch
+    shapes = _leaf_shapes("cnn") if layout == "cnn" else [(2 ** 24 + 123,)]
+    return tuple({f"p{i:02d}": torch.randn((w,) + s, generator=gen, device="cuda")
+                  for i, s in enumerate(shapes)} for _ in range(2))
+
+
+def phase_grad_tree(rows: dict):
+    """``tree_grad_diff_sq_norm``, the call the main path makes, on
+    stacked trees with the CNN's 22 leaf shapes at W = 7 (fp32, bf16)
+    and on one 2^24 + 123 leaf at W = 1, against the plain version
+    (``flatten_stacked`` + ``ref``): rtol 1e-5 / 1e-3, bit-identical on
+    rerun, one wrapper call and the CUDA kernels it launched."""
+    import torch
+    from repro_torch.kernels.grad_diff_norm import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for layout, w in GRAD_TREES:
+        a32, b32 = _stacked_pair(layout, w, gen)
+        p = sum(x[0].numel() for x in a32.values())
+        for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-3)):
+            a = {k: x.to(dtype) for k, x in a32.items()}
+            b = {k: x.to(dtype) for k, x in b32.items()}
+            before = ops.launches
+            got, again = ops.tree_grad_diff_sq_norm(a, b), ops.tree_grad_diff_sq_norm(a, b)
+            calls = ops.launches - before
+            want = ref.grad_diff_sq_norm_2d(ops.flatten_stacked(a), ops.flatten_stacked(b))
+            torch.cuda.synchronize()
+            rel = float(((got - want).abs() / want.abs()).max())
+            case = f"{len(a32)} stacked leaves, W = {w}, P = {p}, {str(dtype)[6:]}"
+            if not torch.allclose(got, want, rtol=rtol, atol=0):
+                fail(f"tree_grad_diff_sq_norm {case}: rel err {rel:.3g} > rtol {rtol}")
+            if not torch.equal(got, again):
+                fail(f"tree_grad_diff_sq_norm {case}: two runs differ")
+            if calls != 2:
+                fail(f"tree_grad_diff_sq_norm {case}: {calls} wrapper calls for two calls")
+            act = _device_kernels(lambda: ops.tree_grad_diff_sq_norm(a, b), 1,
+                                  f"tree_grad_diff_sq_norm {case}")
+            say(f"[check] tree_grad_diff_sq_norm {case}: max rel err {rel:.3g} (rtol {rtol}), "
+                f"reruns bit-identical, CUDA kernels a call: {act['kernels']}")
+            esize = 4 if dtype == torch.float32 else 2
+            bms, bby = bound_ms(2 * w * p * esize + w * 4, 3 * w * p)
+            rows[(layout, str(dtype)[6:])] = {
+                "case": case, "cuda_launches_per_call": len(act["kernels"]),
+                "ms": cuda_ms(lambda: ops.tree_grad_diff_sq_norm(a, b)),
+                "plain_ms": cuda_ms(lambda: ref.grad_diff_sq_norm_2d(ops.flatten_stacked(a),
+                                                                     ops.flatten_stacked(b))),
+                "bound_ms": bms, "bound_by": bby}
 
 
 def _pairs(S: int, window) -> int:
@@ -456,25 +659,32 @@ def phase_serve(arch: str, kernel: str, check_dtype: str) -> dict:
     return dict(stats, launches=launches[kernel], peak_gb=peak)
 
 
+def algo1_federation():
+    """The main path's federation: the CNN, 7 clients of 1,000
+    synthetic-MNIST samples on the paper's non-IID partition,
+    topk0.1_int8, vafl, on the card."""
+    from repro_torch.core.client import LocalSpec
+    from repro_torch.core.federation import Federation
+    from repro_torch.data.partition import paper_noniid_partition
+    from repro_torch.data.synthetic import synthetic_mnist
+    xtr, ytr, xte, yte = synthetic_mnist(7000, 2000, seed=0)
+    data = paper_noniid_partition(xtr, ytr, 7, samples_per_client=1000, seed=0)
+    return Federation(model="cnn", data=data, test_data=(xte, yte), algorithm="vafl",
+                      compressor="topk0.1_int8",
+                      local=LocalSpec(batch_size=32, local_epochs=1, local_rounds=1, lr=0.1),
+                      device="cuda")
+
+
 def phase_main_path():
     import torch
     from repro_torch.common.pytree import count_params, tree_leaves
-    from repro_torch.core.client import LocalSpec
-    from repro_torch.core.federation import Federation
     from repro_torch.core.metrics import ccr
-    from repro_torch.data.partition import paper_noniid_partition
-    from repro_torch.data.synthetic import synthetic_mnist
     from repro_torch.kernels.grad_diff_norm import ops as gd_ops
     from repro_torch.kernels.topk_quant import ops as tq_ops
 
-    xtr, ytr, xte, yte = synthetic_mnist(7000, 2000, seed=0)
-    data = paper_noniid_partition(xtr, ytr, 7, samples_per_client=1000, seed=0)
-    say(f"[main] 7 clients, samples {data.counts.tolist()} (paper non-IID), "
-        f"test {len(yte)}, CNNConfig() channels (16, 32) x 2 blocks")
-    fed = Federation(model="cnn", data=data, test_data=(xte, yte), algorithm="vafl",
-                     compressor="topk0.1_int8",
-                     local=LocalSpec(batch_size=32, local_epochs=1, local_rounds=1, lr=0.1),
-                     device="cuda")
+    fed = algo1_federation()
+    say(f"[main] 7 clients, samples {fed.data.counts.tolist()} (paper non-IID), "
+        f"test 2000, CNNConfig() channels (16, 32) x 2 blocks")
     seen = {}
     ev = fed.evaluate_fn
 
@@ -524,12 +734,12 @@ def phase_main_path():
     if total[0] <= 0 or total[1] <= 0:
         fail(f"a kernel of the main path never launched: grad_diff_norm {total[0]}, "
              f"topk_quant {total[1]}")
-    # one grad_diff_norm launch per vafl round (W = 7 values at once), none
-    # for afl; one topk_quant launch per accepted upload
+    # one grad_diff_norm call per vafl round (W = 7 values at once), none
+    # for afl; one topk_int8 encode call per accepted upload
     if launches["vafl"][0] != 3 or launches["afl"][0] != 0:
         fail(f"grad_diff_norm launches {launches}, expected 3 for vafl and 0 for afl")
     if total[1] != vafl.comm.model_uploads + afl.comm.model_uploads:
-        fail(f"topk_quant launches {total[1]} != accepted uploads")
+        fail(f"topk_int8 encode calls {total[1]} != accepted uploads")
     return total, {alg: secs for alg, (_, secs) in runs.items()}
 
 
@@ -548,9 +758,11 @@ def main() -> None:
 
     phase_build()
     sass = phase_sass()
-    gd_rows, tq_rows, fa_rows, ls_rows = {}, {}, [], []
+    gd_rows, tq_rows, fa_rows, ls_rows, tree_rows, enc_rows = {}, {}, [], [], {}, {}
     phase_grad_diff_norm(gd_rows)
+    phase_grad_tree(tree_rows)
     phase_topk_quant(tq_rows)
+    phase_encode(enc_rows)
     phase_flash_attention(fa_rows)
     phase_linear_scan(ls_rows)
     (gd_launches, tq_launches), secs = phase_main_path()
@@ -564,8 +776,24 @@ def main() -> None:
 
     for row in list(gd_rows.values()) + list(tq_rows.values()) + fa_rows + ls_rows:
         say("[time] " + json.dumps(row))
-    main_gd = dict(gd_rows[GD_SHAPES[0]], launches=gd_launches)
-    main_tq = dict(tq_rows[TQ_SIZES[0]], launches=tq_launches)
+    for key, row in tree_rows.items():
+        say("[time] " + json.dumps(dict(row, name="tree_grad_diff_sq_norm")))
+    for row in enc_rows.values():
+        say("[time] " + json.dumps(row))
+    tree, enc = tree_rows[("cnn", "float32")], enc_rows[ENC_CASES[0]]
+    main_gd = dict(gd_rows[GD_SHAPES[0]], launches=gd_launches, tree_case=tree["case"],
+                   tree_ms=tree["ms"], tree_plain_ms=tree["plain_ms"],
+                   tree_cuda_launches_per_call=tree["cuda_launches_per_call"])
+    # the topk_quant row times what the main path launches, the encode;
+    # the elementwise entry (off the path, held against ref.topk_quant)
+    # keeps its figures under elementwise_*
+    ew = tq_rows[TQ_SIZES[0]]
+    main_tq = dict({k: v for k, v in enc.items() if k != "device_activity"}, name="topk_quant",
+                   entry="topk_int8_encode", replaces=ew["replaces"], shape=[enc["elements"]],
+                   dtype="float32", launches=tq_launches, library_ms=None, library_call=None,
+                   elementwise_shape=ew["shape"], elementwise_ms=ew["ms"],
+                   elementwise_plain_ms=ew["plain_ms"], elementwise_bound_ms=ew["bound_ms"],
+                   elementwise_bound_by=ew["bound_by"], elementwise_max_abs_err=ew["max_abs_err"])
     main_fa = dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"],
                    tensor_core_instructions=sass["flash_attention"])
     main_ls = dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"],

@@ -1,23 +1,26 @@
-"""Composed top-k + int8 codec on the topk_quant kernel.  Port of
+"""Composed top-k + int8 codec on the topk_quant kernels.  Port of
 ``repro.compress.composed``.
 
 Magnitude sparsification to frac·n entries, then stochastic int8
 quantization of the survivors: 5 bytes per kept entry (int32 index +
-int8 value) plus the 4-byte scale.  On the update's device the prologue
-picks the threshold and scale (``torch.topk``), the kernel does
-selection and quantization in one pass, ``torch.nonzero`` compacts the
-kept entries, and the index plane, value plane and scale reach the host
-in one copy.  Ties at the threshold all survive (more than k entries),
-and the byte count is that of the entries actually kept.
+int8 value) plus the 4-byte scale.  On a CUDA update the whole encode
+runs on the device (``ops.topk_int8_encode``): radix select of the
+threshold, quantization and compaction read the update's leaves where
+they lie, and one copy brings the index plane, value plane and scale to
+the host.  On CPU tensors, and with ``use_kernel=False``, the plain
+route runs instead (``ops.encode_plain``: ``torch.topk``, the plain
+quantization, ``torch.nonzero``).  Ties at the threshold all survive
+(more than k entries), and the byte count is that of the entries
+actually kept.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from repro_torch.common.pytree import tree_flatten
 from repro_torch.compress.base import Codec, Payload, register
 from repro_torch.compress.sparsify import flatten_tree, unflatten_tree
-from repro_torch.kernels.topk_quant import ops, ref
+from repro_torch.kernels.topk_quant import ops
 
 
 class TopKQuantCodec(Codec):
@@ -33,22 +36,18 @@ class TopKQuantCodec(Codec):
         self.name = f"topk{frac:g}_int8"
 
     def encode(self, tree, *, seed: int = 0) -> Payload:
-        flat, treedef, shapes, dtypes = flatten_tree(tree)
-        n = int(flat.shape[0])
-        k = max(1, int(round(self.frac * n)))
-        thr, scale = ops.topk_threshold_scale(flat, k)
-        quant = ops.topk_quant if self.use_kernel else ref.topk_quant
-        q, mask = quant(flat, thr, scale, seed & 0xFFFFFFFF)
-        kept = torch.nonzero(mask).reshape(-1).to(torch.int32)
-        # one device->host copy: [idx bytes | val bytes | scale bytes]
-        wire = torch.cat([kept.view(torch.uint8), q[kept.long()].view(torch.uint8),
-                          scale.reshape(1).view(torch.uint8)]).cpu().numpy()
-        nk = kept.numel()
-        planes = {"idx": wire[:4 * nk].view(np.int32),
-                  "val": wire[4 * nk:5 * nk].view(np.int8)}
+        leaves, treedef = tree_flatten(tree)
+        shapes, dtypes = [tuple(x.shape) for x in leaves], [x.dtype for x in leaves]
+        n = int(sum(x.numel() for x in leaves))
+        if self.use_kernel:
+            idx, val, scale = ops.topk_int8_encode(leaves, self.frac, seed & 0xFFFFFFFF)
+        else:
+            flat = flatten_tree(tree)[0]
+            idx, val, scale = ops.encode_plain(flat, ops.encode_k(self.frac, n),
+                                               seed & 0xFFFFFFFF)
         meta = {"treedef": treedef, "shapes": shapes, "dtypes": dtypes, "n": n,
-                "scale": float(wire[5 * nk:].view(np.float32)[0]), "device": flat.device}
-        return Payload(self.name, planes, meta=meta, wire_overhead=4)
+                "scale": scale, "device": leaves[0].device}
+        return Payload(self.name, {"idx": idx, "val": val}, meta=meta, wire_overhead=4)
 
     def decode(self, payload: Payload):
         m = payload.meta

@@ -47,3 +47,32 @@ def topk_quant(x, thr, scale, seed: int):
     q = torch.clamp(torch.floor(y + u), -QMAX, QMAX).to(torch.int8)
     q = torch.where(keep, q, torch.zeros_like(q))
     return q, keep.to(torch.int8)
+
+
+# (shift, bits) of the encode kernel's three radix digits of a magnitude key
+DIGITS = ((20, 11), (10, 10), (0, 10))
+
+
+def radix_threshold_scale(x, k: int, inv_qmax: float):
+    """Plain model of the encode kernel's select (csrc/topk_quant.cu),
+    used by the tests: the k-th largest |x| found digit by digit on the
+    bits of key = bits(x) & 0x7FFFFFFF, one histogram a digit over the
+    keys that match the digits found so far, and max|x| as the integer
+    max of the keys; both clamped at 1e-12, scale = max * inv_qmax.
+    Returns (thr, scale) as fp32 0-dim tensors."""
+    key = x.float().reshape(-1).view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    prefix, krem = 0, int(k)
+    for shift, bits in DIGITS:
+        high = shift + bits
+        cand = key[(key >> high) == (prefix >> high)]
+        hist = torch.bincount((cand >> shift) & ((1 << bits) - 1), minlength=1 << bits)
+        above = torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0]) - hist
+        b = int(torch.nonzero((above < krem) & (krem <= above + hist))[0, 0])
+        krem -= int(above[b])
+        prefix |= b << shift
+
+    def as_f32(bits: int):
+        return torch.tensor([bits], dtype=torch.int32).view(torch.float32)[0]
+    thr = torch.clamp_min(as_f32(prefix), 1e-12)
+    scale = torch.clamp_min(as_f32(int(key.max())), 1e-12) * inv_qmax
+    return thr, scale

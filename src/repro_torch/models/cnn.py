@@ -71,10 +71,14 @@ def _same_pad(size: int, k: int, stride: int):
 
 @contextmanager
 def _cudnn_fp32():
-    """cuDNN without TF32 for the block's duration; its other flags kept."""
+    """cuDNN in full fp32 and deterministic for the block's duration: no
+    TF32, no benchmarked or nondeterministic algorithms (with them, two
+    card runs of Algorithm 1 from one seed ended at different weights
+    and upload bytes).  Its ``enabled`` flag is kept, and the process-wide
+    flags are restored on exit."""
     cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                     allow_tf32=False):
         yield
 
 

@@ -1,4 +1,4 @@
-"""repro_torch and chip_smoke.py must run on a CUDA host without JAX:
+"""repro_torch, chip_smoke.py and algo1_ab.py must run on a CUDA host without JAX:
 they import neither ``jax`` nor anything of ``repro``."""
 import ast
 import os
@@ -34,7 +34,7 @@ def _imported_modules(path: Path):
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "algo1_ab.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
