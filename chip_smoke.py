@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of repro_torch on one NVIDIA H100: build the four CUDA
 kernels, hold each against its plain PyTorch version on the card, time
-them, and drive the port's two main paths through their public entry
+them, and drive the port's three main paths through their public entry
 points.
 
 1. Algorithm 1:
@@ -11,7 +11,12 @@ points.
 
    then afl on the same federation (kernels grad_diff_norm, and
    topk_quant's device-side topk_int8 encode).
-2. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
+2. The event runtime on the same federation, ``run(rounds=3,
+   mode="event")``: the sequential loop for vafl, afl and eaflm (21
+   events each), fedavg's round barrier, and vafl under
+   ``scenario="mobile_fleet"`` (grad_diff_norm once per vafl event, the
+   encode once per accepted upload); ``[event]`` lines.
+3. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
    rwkv6_3b at their full published configurations (random weights from
    a seed): 4 prompts of 2048 tokens, 32 greedy tokens each (kernels
    flash_attention and linear_scan in the prefill), then a prefill of
@@ -36,7 +41,8 @@ CUDA device is visible, or when it is not inside a checkout.  The last
 line of its output is one JSON object naming the device; the line
 before it is the card's name and power limit (``nvidia-smi``), and the
 line before that the per-kernel JSON (launches, max error, times,
-bound).  It imports neither JAX nor the JAX package.
+bound; ``event_*`` fields for the event path).  It imports neither JAX
+nor the JAX package.
 """
 from __future__ import annotations
 
@@ -54,7 +60,9 @@ TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 on the tensor cores
 GD_SHAPES = [(7, 42698), (1, 2 ** 24 + 123)]   # main path: 7 clients x CNN params
 TQ_SIZES = [42698, 2 ** 24 + 123]
 RESIDENT_LIMIT = 8 * 13312 * 4   # elements of one leaf the encode's resident route takes
-GRAD_TREES = [("cnn", 7), ("one", 1)]   # tree_grad_diff_sq_norm cases: (leaves, W)
+# tree_grad_diff_sq_norm cases: (leaves, W); the CNN at W = 7 is a round's
+# call, at W = 1 an event's
+GRAD_TREES = [("cnn", 7), ("cnn1", 1), ("one", 1)]
 # encode cases: (leaf layout, input); the first is the main path's update
 ENC_CASES = [("cnn", "randn"), ("mlp", "randn"), ("one", RESIDENT_LIMIT),
              ("one", RESIDENT_LIMIT + 1), ("one", 2 ** 24 + 123), ("cnn", "ties"),
@@ -410,17 +418,18 @@ def phase_encode(rows: dict):
 
 def _stacked_pair(layout: str, w: int, gen) -> tuple:
     """Two stacked fp32 trees on the card, W = ``w`` rows of the CNN's
-    leaves or of one 2^24 + 123 leaf."""
+    leaves ("cnn", "cnn1") or of one 2^24 + 123 leaf."""
     import torch
-    shapes = _leaf_shapes("cnn") if layout == "cnn" else [(2 ** 24 + 123,)]
+    shapes = _leaf_shapes("cnn") if layout.startswith("cnn") else [(2 ** 24 + 123,)]
     return tuple({f"p{i:02d}": torch.randn((w,) + s, generator=gen, device="cuda")
                   for i, s in enumerate(shapes)} for _ in range(2))
 
 
 def phase_grad_tree(rows: dict):
     """``tree_grad_diff_sq_norm``, the call the main path makes, on
-    stacked trees with the CNN's 22 leaf shapes at W = 7 (fp32, bf16)
-    and on one 2^24 + 123 leaf at W = 1, against the plain version
+    stacked trees with the CNN's 22 leaf shapes at W = 7 (a round's call;
+    fp32, bf16) and W = 1 (an event's), and on one 2^24 + 123 leaf at
+    W = 1, against the plain version
     (``flatten_stacked`` + ``ref``): rtol 1e-5 / 1e-3, bit-identical on
     rerun, one wrapper call and the CUDA kernels it launched."""
     import torch
@@ -743,6 +752,161 @@ def phase_main_path():
     return total, {alg: secs for alg, (_, secs) in runs.items()}
 
 
+EVENT_RUNS = [("vafl", None), ("afl", None), ("eaflm", None), ("fedavg", None),
+              ("vafl", "mobile_fleet")]
+
+
+def busy_share(fn) -> tuple:
+    """One profiled call of ``fn`` (``torch.profiler``): its CUDA kernels'
+    summed device time over the call's synchronized host time, and the
+    number of kernels.  A reading with no kernel at all is taken again,
+    up to three times; three empty ones fail."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - h0
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not e.name.startswith(("Memcpy", "Memset"))]
+        if us:
+            return sum(us) / 1e6 / wall, len(us), wall
+    fail("the profiler recorded no CUDA kernel in three profiled event runs")
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Mean host milliseconds of ``fn`` over ``reps`` synchronized calls,
+    after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - h0) / reps * 1e3
+
+
+def event_breakdown(fed) -> dict:
+    """Host milliseconds (synchronized) of each step of one vafl event of
+    ``run_event_driven``, called as the loop calls it, on client 0 of the
+    main path's federation: the local update of a size-1 stack, the
+    client's eval, the Eq. 1 value (the W = 1 grad_diff_norm call and the
+    amplifier), the topk0.1_int8 upload (encode with error feedback) and
+    the async mix."""
+    import torch
+    from repro_torch.common.pytree import stacked_index, tree_broadcast, tree_bytes, tree_map
+    from repro_torch.core.client import make_local_update
+    from repro_torch.core.metrics import CommStats
+    from repro_torch.core.runtimes import common
+    cfg, dev = fed.config, fed.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tree_map(lambda x: x.to(dev), fed.init_params_fn(gen))
+    update = make_local_update(fed.loss_fn, cfg.local)
+    data = {"images": torch.as_tensor(fed.data.images[:1], device=dev),
+            "labels": torch.as_tensor(fed.data.labels[:1], device=dev).long(),
+            "mask": torch.as_tensor(fed.data.mask[:1], device=dev)}
+    one = tree_broadcast(params, 1)
+    newp_s, eff_s, _ = update(one, data, gen, 0, clients=[0])
+    newp = stacked_index(newp_s, 0)
+    batch_eval, values_fn, _ = common._event_helpers(cfg, fed.evaluate_fn, common._value_fn(cfg))
+    accs = batch_eval(newp_s)
+    prev = tree_map(torch.zeros_like, eff_s)
+    codec, _, ef = common._make_codecs(cfg)
+    comm = CommStats(model_bytes=tree_bytes(params))
+    aggregator = cfg.make_algorithm()[2]
+    steps = {"local update": lambda: update(one, data, gen, 0, clients=[0]),
+             "client eval": lambda: batch_eval(newp_s),
+             "value": lambda: float(values_fn(prev, eff_s, accs)[0]),
+             "upload encode": lambda: common._compressed_upload(codec, ef, comm, params, newp,
+                                                                0, 1),
+             "async mix": lambda: aggregator.mix(params, newp, 0.25)}
+    return {name: host_ms(fn) for name, fn in steps.items()}
+
+
+def phase_event_path():
+    """``Federation.run(rounds=3, mode="event")`` on the main path's
+    federation: the sequential event loop for vafl, afl and eaflm (21
+    events each), fedavg's round barrier (3 rounds of 7 clients), and
+    vafl again under ``scenario="mobile_fleet"``.  grad_diff_norm must
+    launch once per vafl event (a W = 1 call) and never otherwise, the
+    topk_int8 encode once per accepted upload, and no serving kernel."""
+    import torch
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.kernels.grad_diff_norm import ops as gd_ops
+    from repro_torch.kernels.topk_quant import ops as tq_ops
+
+    fed = algo1_federation()
+    seen = {}
+    ev = fed.evaluate_fn
+
+    def capture(p):
+        seen["params"] = p
+        return ev(p)
+    fed.evaluate_fn = capture
+    fed.run(rounds=1, mode="event")     # warm-up: 7 vafl events
+    torch.cuda.synchronize()
+
+    read = _reset_launches()
+    runs = {}
+    for alg, scenario in EVENT_RUNS:
+        g0, t0 = gd_ops.launches, tq_ops.launches
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        res = fed.run(rounds=3, mode="event", algorithm=alg, scenario=scenario)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - h0
+        gd, tq = gd_ops.launches - g0, tq_ops.launches - t0
+        name = alg + (f"@{scenario}" if scenario else "")
+        runs[name] = (res, secs, gd, tq)
+        if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(seen["params"])):
+            fail(f"event {name}: non-finite global parameters")
+        for r in res.records:
+            if not 0.0 <= r.global_acc <= 1.0:
+                fail(f"event {name}: accuracy {r.global_acc} out of [0, 1]")
+        steps = res.records[-1].round         # events, or barrier rounds for fedavg
+        unit = "round" if alg == "fedavg" else "event"
+        if steps != (3 if alg == "fedavg" else 3 * len(fed.data.counts)):
+            fail(f"event {name}: the last record is at {unit} {steps}")
+        say(f"[event] {name}: {steps} {unit}s, model_uploads {res.comm.model_uploads}, "
+            f"scalar_reports {res.comm.scalar_reports}, uplink bytes {res.comm.uplink_bytes}, "
+            f"downlink bytes {res.comm.downlink_bytes}, sim_time {res.sim_time:.6f}, "
+            f"idle_fraction {res.idle_fraction:.6f}, best acc {res.best_acc:.4f}, "
+            f"{secs:.4f} s host ({secs / steps:.4f} s per {unit}, synchronized), kernel "
+            f"launches grad_diff_norm {gd}, topk_quant {tq}")
+        if alg == "vafl" and gd != steps:
+            fail(f"event {name}: grad_diff_norm launched {gd} times for {steps} events")
+        if alg != "vafl" and gd != 0:
+            fail(f"event {name}: grad_diff_norm launched {gd} times, expected 0")
+        if tq != res.comm.model_uploads:
+            fail(f"event {name}: {tq} topk_int8 encode calls for {res.comm.model_uploads} "
+                 f"accepted uploads")
+    counts = read()                              # read just after the event path
+    if counts["flash_attention"] or counts["linear_scan"]:
+        fail(f"the event path launched a serving kernel: {counts}")
+    vafl, afl, fedavg = runs["vafl"][0], runs["afl"][0], runs["fedavg"][0]
+    if vafl.comm.model_uploads > afl.comm.model_uploads:
+        fail(f"event vafl uploaded more than afl ({vafl.comm.model_uploads} > "
+             f"{afl.comm.model_uploads})")
+    if fedavg.idle_fraction <= afl.idle_fraction:
+        fail(f"fedavg's idle fraction {fedavg.idle_fraction} is not above afl's "
+             f"{afl.idle_fraction}")
+    share, kernels, wall = busy_share(lambda: fed.run(rounds=1, mode="event"))
+    say(f"[event] one profiled vafl event run (7 events, torch.profiler): {kernels} CUDA "
+        f"kernels, device busy {share:.1%} of {wall:.4f} s")
+    parts = event_breakdown(fed)
+    per_event = runs["vafl"][1] / runs["vafl"][0].records[-1].round * 1e3
+    say("[event] a vafl event's steps (host ms, synchronized, mean of 5): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; their sum {sum(parts.values()):.3f} of {per_event:.3f} ms an event")
+    return ((counts["grad_diff_norm"], counts["topk_quant"]),
+            {name: secs for name, (_, secs, _, _) in runs.items()}, share)
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (src/repro_torch is missing)")
@@ -766,6 +930,7 @@ def main() -> None:
     phase_flash_attention(fa_rows)
     phase_linear_scan(ls_rows)
     (gd_launches, tq_launches), secs = phase_main_path()
+    (ev_gd, ev_tq), ev_secs, ev_busy = phase_event_path()
     # rwkv6_3b's prefill-vs-decode check is gated in fp32: at bf16 the
     # random-weight stack's two paths drift apart with depth in the
     # reference as in the port (PERF.md §6; the bf16 gate at depth 2 is
@@ -781,9 +946,12 @@ def main() -> None:
     for row in enc_rows.values():
         say("[time] " + json.dumps(row))
     tree, enc = tree_rows[("cnn", "float32")], enc_rows[ENC_CASES[0]]
+    one = tree_rows[("cnn1", "float32")]
     main_gd = dict(gd_rows[GD_SHAPES[0]], launches=gd_launches, tree_case=tree["case"],
                    tree_ms=tree["ms"], tree_plain_ms=tree["plain_ms"],
-                   tree_cuda_launches_per_call=tree["cuda_launches_per_call"])
+                   tree_cuda_launches_per_call=tree["cuda_launches_per_call"],
+                   event_launches=ev_gd, event_tree_case=one["case"], event_tree_ms=one["ms"],
+                   event_tree_plain_ms=one["plain_ms"], event_tree_bound_ms=one["bound_ms"])
     # the topk_quant row times what the main path launches, the encode;
     # the elementwise entry (off the path, held against ref.topk_quant)
     # keeps its figures under elementwise_*
@@ -793,13 +961,20 @@ def main() -> None:
                    dtype="float32", launches=tq_launches, library_ms=None, library_call=None,
                    elementwise_shape=ew["shape"], elementwise_ms=ew["ms"],
                    elementwise_plain_ms=ew["plain_ms"], elementwise_bound_ms=ew["bound_ms"],
-                   elementwise_bound_by=ew["bound_by"], elementwise_max_abs_err=ew["max_abs_err"])
+                   elementwise_bound_by=ew["bound_by"], elementwise_max_abs_err=ew["max_abs_err"],
+                   event_launches=ev_tq)
     main_fa = dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"],
                    tensor_core_instructions=sass["flash_attention"])
     main_ls = dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"],
                    tensor_core_instructions=sass["linear_scan"])
     say(f"[time] main path seconds per round (3 rounds, host clock, synchronized): "
         f"vafl {secs['vafl'] / 3:.4f}, afl {secs['afl'] / 3:.4f}")
+    say("[time] event path (host clock, synchronized): "
+        + ", ".join(f"{name} {t / (3 if name == 'fedavg' else 21):.4f} s per "
+                    f"{'round' if name == 'fedavg' else 'event'} "
+                    f"({(3 if name == 'fedavg' else 21) / t:.3f}/s)"
+                    for name, t in ev_secs.items())
+        + f"; device busy {ev_busy:.1%} of a profiled vafl event run")
     for arch, row in (("starcoder2_3b", main_fa), ("rwkv6_3b", main_ls)):
         st = served[arch]
         share = st["launches"] * row["ms"] / 1e3 / st["prefill_s"]

@@ -1,19 +1,22 @@
 """The pluggable FL algorithm protocol.  Port of
-``repro.algorithms.base``, round form only.
+``repro.algorithms.base`` without the traced SPMD gate
+(``gate_stacked``) and the FedBuff flush (``flush_mix``), which come
+with the distributed step and the batched engine.
 
 An algorithm is two small objects behind a string registry
 (``get_algorithm("vafl")``):
 
-* ``UploadPolicy``: the per-round "which clients ship their model?"
-  decision (the paper's Eq. 1-3 gating), over all clients at once
-  (``round_mask``).  It declares which inputs it needs (``needs_values``
-  / ``needs_norms``) so the runtime computes nothing the algorithm won't
-  read; AFL pays nothing for VAFL's value term.
-* ``Aggregator``: how accepted uploads enter the global model, the
-  masked weighted FedAvg of Algorithm 1.
-
-The scalar per-arrival forms and the asynchronous mixes of the reference
-wait for the event runtimes.
+* ``UploadPolicy``: the "should this update ship?" decision (the
+  paper's Eq. 1-3 gating), in two forms: a *scalar* form (``decide``)
+  consumed in arrival order by the event runtime, and a *stacked* form
+  (``round_mask`` over all clients) for the round and barrier runtimes.
+  It declares which inputs it needs (``needs_values`` / ``needs_norms``)
+  so the runtime computes nothing the algorithm won't read; AFL pays
+  nothing for VAFL's value term.
+* ``Aggregator``: how accepted uploads enter the global model: the
+  masked weighted FedAvg of Algorithm 1 (round and barrier runtimes),
+  the asynchronous mix theta <- (1-rho s) theta + rho s theta_i (event
+  runtime), and the staleness weight s(tau) that scales it.
 """
 from __future__ import annotations
 
@@ -21,6 +24,16 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+
+_STALE_TABLE_SIZE = 4096
+
+
+def _agg():
+    """repro_torch.core.aggregation, imported lazily: this module must stay
+    a leaf because the runtimes import it while ``repro_torch.core`` is
+    initializing."""
+    from repro_torch.core import aggregation
+    return aggregation
 
 
 class RoundContext:
@@ -63,13 +76,37 @@ class UploadPolicy:
 
     needs_values: bool = False   # Eq. 1 V (needs client eval + prev grads)
     needs_norms: bool = False    # ||eff_grad||^2 per client
+    reports: bool = False        # a scalar report precedes each decision
 
     def __init__(self, cfg):
         self.cfg = cfg
 
+    # ---------------------------------------------------- event runtime ---
     def begin_run(self, num_clients: int) -> None:
         """Reset per-run state (called once by every runtime)."""
 
+    def state(self):
+        """Checkpointable per-run state; None for stateless policies.
+        Stateful policies override both this and ``set_state``."""
+        return None
+
+    def set_state(self, state) -> None:
+        """Restore ``state()``'s value after ``begin_run`` on resume."""
+
+    def window_threshold(self, server_delta_fn: Callable) -> float:
+        """Server-side threshold, evaluated once per mix point (EAFLM's
+        Eq. 3 RHS).  ``server_delta_fn()`` lazily materialises
+        theta^{k-1} - theta^{k-2}; the default never calls it."""
+        return 0.0
+
+    def decide(self, i: int, value: Optional[float], norm: Optional[float],
+               threshold: float) -> bool:
+        """Scalar per-client decision, called in arrival order.  ``value``
+        / ``norm`` are only supplied when the matching ``needs_*`` flag
+        is set."""
+        return True
+
+    # ----------------------------------------------------- round runtime ---
     def round_mask(self, ctx: RoundContext) -> Tuple[np.ndarray, Optional[List[float]]]:
         """Boolean upload mask over all clients for one synchronous
         round, plus the per-client values to log in the round record
@@ -78,21 +115,44 @@ class UploadPolicy:
 
 
 class Aggregator:
-    """Default aggregation: masked weighted FedAvg."""
+    """Default aggregation: masked weighted FedAvg for the synchronous
+    runtimes, plain async mix with the config's staleness decay for the
+    event runtime.  Algorithms override ``_stale_fn`` or the mix hooks."""
 
     def __init__(self, cfg):
         self.cfg = cfg
+        # rho: the event runtime reads THIS attribute (not the config),
+        # so an aggregator subclass can own its mixing rate
+        self.mix_rate = getattr(cfg, "mix_rate", 0.5)
+        self._table: Optional[np.ndarray] = None
 
     def begin_run(self, num_clients: int) -> None:
-        """Reset per-run state."""
+        """Reset per-run state (the staleness table is pure, kept)."""
+
+    # ------------------------------------------------------- staleness ---
+    def _stale_fn(self, taus: np.ndarray):
+        """Vectorised s(tau), the override point for FedAsync's family."""
+        return _agg().staleness_weight(taus, getattr(self.cfg, "staleness_kind", "poly"))
+
+    def stale_weight(self, tau: int) -> float:
+        """s(tau) via a lazily built lookup table of the first
+        ``_STALE_TABLE_SIZE`` staleness values."""
+        if self._table is None:
+            self._table = np.asarray(self._stale_fn(np.arange(_STALE_TABLE_SIZE)),
+                                     np.float64)
+        if tau < len(self._table):
+            return float(self._table[tau])
+        return float(self._stale_fn(np.asarray([tau]))[0])
+
+    # ------------------------------------------------------------ mixes ---
+    def mix(self, global_params, recon, rho_s):
+        """Single-arrival async mix."""
+        return _agg().async_mix(global_params, recon, rho_s)
 
     def round_aggregate(self, global_params, stacked_params, mask, counts):
         """Masked weighted FedAvg (Algorithm 1 line 16); keeps the old
         global model when the mask is empty."""
-        # imported here: this module must stay a leaf, because the
-        # runtimes import it while ``repro_torch.core`` is initializing
-        from repro_torch.core.aggregation import aggregate_or_keep
-        return aggregate_or_keep(global_params, stacked_params, mask, counts)
+        return _agg().aggregate_or_keep(global_params, stacked_params, mask, counts)
 
 
 @dataclass(frozen=True)

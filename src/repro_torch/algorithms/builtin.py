@@ -1,10 +1,10 @@
 """The paper's algorithm family as protocol plugins.  Port of
-``repro.algorithms.builtin`` (round form).
+``repro.algorithms.builtin`` without the traced SPMD gates.
 
-* ``afl``    — plain asynchronous FL: every participating client uploads.
+* ``afl``    — plain asynchronous FL: every finished client uploads.
 * ``vafl``   — the paper's contribution: Eq. 1 value, Eq. 2 above-mean gate.
 * ``eaflm``  — the Eq. 3 lazy-client suppression rule.
-* ``fedavg`` — synchronous FedAvg.
+* ``fedavg`` — synchronous FedAvg; runs the round barrier in event mode.
 """
 from __future__ import annotations
 
@@ -23,9 +23,27 @@ class AlwaysUploadPolicy(UploadPolicy):
 
 class VAFLPolicy(UploadPolicy):
     """Eq. 1 + Eq. 2: clients report the scalar V; only above-mean
-    clients upload."""
+    clients upload.  Event form keeps the latest reported V per client
+    and gates against the mean of everything reported so far."""
 
     needs_values = True
+    reports = True
+
+    def begin_run(self, num_clients: int) -> None:
+        self._known_V = np.full(num_clients, np.inf)
+
+    def state(self):
+        # the fleet-wide gate state: every client's latest reported V
+        return {"known_V": self._known_V.copy()}
+
+    def set_state(self, state) -> None:
+        self._known_V = np.asarray(state["known_V"], float).copy()
+
+    def decide(self, i: int, value: Optional[float], norm: Optional[float],
+               threshold: float) -> bool:
+        self._known_V[i] = value
+        finite = self._known_V[np.isfinite(self._known_V)]
+        return value >= finite.mean() if len(finite) else True
 
     def round_mask(self, ctx: RoundContext) -> Tuple[np.ndarray, Optional[List[float]]]:
         ctx.comm.record_report(int(ctx.part.sum()))
@@ -42,11 +60,19 @@ class EAFLMPolicy(UploadPolicy):
     the server-delta threshold (1/(alpha^2 beta m^2)) ||Delta theta||^2."""
 
     needs_norms = True
+    reports = True
 
     def __init__(self, cfg):
         super().__init__(cfg)
         self.alpha = getattr(cfg, "eaflm_alpha", 0.98)
         self.beta = getattr(cfg, "eaflm_beta", 1e-2)
+
+    def window_threshold(self, server_delta_fn) -> float:
+        return float(value_lib.eaflm_threshold([server_delta_fn()], self.alpha, self.beta, 1))
+
+    def decide(self, i: int, value: Optional[float], norm: Optional[float],
+               threshold: float) -> bool:
+        return norm > threshold
 
     def round_mask(self, ctx: RoundContext) -> Tuple[np.ndarray, Optional[List[float]]]:
         thr = value_lib.eaflm_threshold([ctx.server_delta()], self.alpha, self.beta, 1)

@@ -45,11 +45,13 @@ def make_local_update(loss_fn: Callable, spec: LocalSpec,
     """loss_fn(params, batch) -> (loss, aux); batch has 'images',
     'labels', 'weights'.  Returns
 
-    update(stacked_params, data, generator, step) -> (new_params, eff_grad, mean_loss)
+    update(stacked_params, data, generator, step, clients) -> (new_params, eff_grad, mean_loss)
 
     over stacked clients, with data {"images": (N,M,...), "labels": (N,M),
-    "mask": (N,M)} on the parameters' device and ``step`` the call's
-    index (the round in the round runtime), passed on to ``perm_fn``."""
+    "mask": (N,M)} on the parameters' device, ``step`` the call's index
+    (the round in the round runtime, the event in the event runtime) and
+    ``clients`` the client id of each row (default 0..N-1), both passed
+    on to ``perm_fn``."""
     B, lr = spec.batch_size, spec.lr
     n_ep = spec.local_epochs * spec.local_rounds
 
@@ -95,11 +97,12 @@ def make_local_update(loss_fn: Callable, spec: LocalSpec,
         eff_grad = tree_map(lambda a, c: (a.float() - c.float()) / lr, params, newp)
         return newp, eff_grad, torch.mean(torch.stack(ep_means))
 
-    def update(stacked_params, data, generator, step: int = 0):
+    def update(stacked_params, data, generator, step: int = 0, clients=None):
         n = data["labels"].shape[0]
-        outs = [one_client(i, stacked_index(stacked_params, i), data["images"][i],
+        clients = range(n) if clients is None else clients
+        outs = [one_client(c, stacked_index(stacked_params, i), data["images"][i],
                            data["labels"][i], data["mask"][i], generator, step)
-                for i in range(n)]
+                for i, c in enumerate(clients)]
         return (tree_stack([o[0] for o in outs]), tree_stack([o[1] for o in outs]),
                 torch.stack([o[2] for o in outs]))
 

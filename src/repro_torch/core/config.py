@@ -2,11 +2,11 @@
 names and defaults.
 
 Fields whose subsystem this port does not have yet raise
-``NotImplementedError`` when set, rather than being ignored: a scenario,
+``NotImplementedError`` when set, rather than being ignored:
 observability, checkpoint-resume, the batched engine, client sharding
-and the eval cache.  ``value_backend`` here is a *stacked* function,
-``(stacked_a, stacked_b) -> (W,)``; None selects the grad_diff_norm
-kernel's wrapper.  The device is not a field: the entry points take
+and the eval cache.  ``scenario`` resolves through ``repro_torch.sim``.
+``value_backend`` here is a *stacked* function, ``(stacked_a,
+stacked_b) -> (W,)``; None selects the grad_diff_norm kernel's wrapper.  The device is not a field: the entry points take
 ``device=`` (default ``"cuda"``).
 """
 from __future__ import annotations
@@ -22,7 +22,7 @@ from repro_torch.core.client import LocalSpec
 ENGINES = ("sequential", "batched")
 
 # field -> value meaning "off"; any other value is a subsystem not ported yet
-_NOT_PORTED = {"scenario": None, "obs": None, "checkpoint_path": None,
+_NOT_PORTED = {"obs": None, "checkpoint_path": None,
                "resume": False, "engine": "sequential", "shard_clients": False,
                "eval_cache": 0}
 
@@ -50,7 +50,7 @@ class FLRunConfig:
     # log per-client test accuracy in every RoundRecord (one eval of
     # every client per round, even for algorithms that never read it)
     record_client_accs: bool = True
-    # event-driven runtime (not ported yet; kept for field parity)
+    # event-driven runtime
     mix_rate: float = 0.5              # rho
     staleness_kind: str = "poly"       # 'poly' | 'const' | 'hinge'
     events_per_eval: int = 7
@@ -77,6 +77,11 @@ class FLRunConfig:
                 raise NotImplementedError(
                     f"FLRunConfig.{name}={getattr(self, name)!r} is not ported to "
                     "repro_torch yet (ROADMAP.md, queue 1)")
+        if self.scenario is not None:
+            # lazy import: repro_torch.sim is only pulled in when a
+            # scenario is configured
+            from repro_torch.sim import resolve_scenario
+            self.scenario = resolve_scenario(self.scenario)
         if self.eval_subsample < 0:
             raise ValueError(f"eval_subsample must be >= 0 (got {self.eval_subsample})")
         if self.checkpoint_every != 0:

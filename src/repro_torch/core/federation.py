@@ -1,11 +1,12 @@
 """``Federation``: the one-object public API for an FL experiment.  Port
-of ``repro.core.federation`` for the round runtime.
+of ``repro.core.federation`` without ``serve`` and observability.
 
     from repro_torch.core.federation import Federation
 
     fed = Federation(model="cnn", data=fed_data, test_data=(xte, yte),
-                     algorithm="vafl", compressor="topk0.1_int8")
-    result = fed.run(rounds=200, mode="round")
+                     algorithm="vafl", compressor="topk0.1_int8",
+                     scenario="mobile_fleet")
+    result = fed.run(rounds=200, mode="round")     # or mode="event"
 
 ``model`` is "mlp", "cnn", a ``(forward_fn, init_fn, model_cfg)``
 triple, or omitted when explicit ``init_params_fn``/``loss_fn``/
@@ -21,7 +22,7 @@ from typing import Callable, Optional
 from repro_torch.core.client import (LocalSpec, make_evaluator,
                                      make_weighted_classifier_loss)
 from repro_torch.core.config import FLRunConfig, resolve_device
-from repro_torch.core.runtimes.rounds import run_round_based
+from repro_torch.core.runtimes import run_event_driven, run_round_based
 
 MODES = ("round", "event")
 
@@ -57,7 +58,7 @@ class Federation:
                  loss_fn: Optional[Callable] = None,
                  evaluate_fn: Optional[Callable] = None,
                  client_eval_fn: Optional[Callable] = None,
-                 eval_batch: int = 500, device="cuda", **config):
+                 scenario=None, eval_batch: int = 500, device="cuda", **config):
         self.device = resolve_device(device)
         self.data = data
         num_clients = len(data.counts)
@@ -92,7 +93,8 @@ class Federation:
         config.setdefault("events_per_eval", num_clients)
         self.config = FLRunConfig(
             algorithm=algorithm, num_clients=num_clients, local=local or LocalSpec(),
-            compressor=compressor, broadcast_compressor=broadcast_compressor, **config)
+            compressor=compressor, broadcast_compressor=broadcast_compressor,
+            scenario=scenario, **config)
 
     def _client_eval_for(self, cfg):
         """The per-client evaluator for one run: the explicit
@@ -114,24 +116,29 @@ class Federation:
                 subsample_seed=cfg.seed, device=self.device)
         return self._subsampled_evals[key]
 
-    def run(self, rounds: Optional[int] = None, *, mode: str = "round",
+    def run(self, rounds: Optional[int] = None, *, mode: str = "round", speed=None,
             perm_fn=None, verbose: bool = False, **overrides):
-        """Run the federation and return a ``RunResult``.  ``mode="round"``
-        is the paper's Algorithm 1; ``rounds`` and any ``FLRunConfig``
-        field can be overridden per call.  ``perm_fn`` is the local
-        update's permutation hook (``core.client``)."""
+        """Run the federation and return a ``RunResult``.
+
+        ``mode``: "round" (the paper's Algorithm 1) or "event" (the
+        wall-clock async simulation; for sync-barrier algorithms like
+        fedavg, the round barrier).  ``speed`` is the event runtime's
+        compute model (default: the scenario's fleet, else the paper's
+        testbed); ``perm_fn`` is the local update's permutation hook
+        (``core.client``).  ``rounds`` and any other ``FLRunConfig``
+        field can be overridden per call."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; known: {MODES}")
-        if mode == "event":
-            raise NotImplementedError("mode='event' needs the event runtimes, not "
-                                      "ported to repro_torch yet (ROADMAP.md, queue 1 item 4)")
         if "num_clients" in overrides:
             raise ValueError("num_clients is fixed by the federation's data; it "
                              "cannot be overridden per run")
         if rounds is not None:
             overrides["rounds"] = rounds
         cfg = dataclasses.replace(self.config, **overrides) if overrides else self.config
-        return run_round_based(cfg, init_params_fn=self.init_params_fn, loss_fn=self.loss_fn,
-                               fed_data=self.data, evaluate_fn=self.evaluate_fn,
-                               client_eval_fn=self._client_eval_for(cfg),
-                               device=self.device, perm_fn=perm_fn, verbose=verbose)
+        kw = dict(init_params_fn=self.init_params_fn, loss_fn=self.loss_fn,
+                  fed_data=self.data, evaluate_fn=self.evaluate_fn,
+                  client_eval_fn=self._client_eval_for(cfg), device=self.device,
+                  perm_fn=perm_fn, verbose=verbose)
+        if mode == "round":
+            return run_round_based(cfg, **kw)
+        return run_event_driven(cfg, speed=speed, **kw)

@@ -1,7 +1,8 @@
-"""Plumbing of the round runtime: codec wiring with per-client error
-feedback, deterministic per-transfer encode seeds, participation
-sampling and the stacked round inputs.  Port of the round-path helpers
-of ``repro.core.runtimes.common``.
+"""Plumbing shared by the runtimes (rounds / events / sync): codec wiring
+with per-client error feedback, deterministic per-transfer encode seeds,
+participation sampling, the scenario models and the stacked per-client
+inputs.  Port of ``repro.core.runtimes.common`` without its obs hooks and
+the batched engine's helpers (``_engine_jits``, ``_flush_reconstructions``).
 
 Nothing in here knows which algorithm is running; runtimes consume the
 ``UploadPolicy`` / ``Aggregator`` protocol for every algorithm-dependent
@@ -12,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.common.pytree import stacked_index, tree_map, tree_scatter, tree_stack
+from repro_torch.common.pytree import (stacked_index, tree_leaves, tree_map, tree_scatter,
+                                       tree_stack)
 from repro_torch.compress import ErrorFeedback, compress_update, get_codec
 from repro_torch.core import value as value_lib
 from repro_torch.kernels.grad_diff_norm.ops import tree_grad_diff_sq_norm
@@ -35,6 +37,24 @@ def _make_codecs(run_cfg):
 
 
 _UPLOAD, _BROADCAST = 1, 2
+
+
+# ------------------------------------------------- scenario plumbing ---
+
+def _scenario_models(run_cfg, num_clients):
+    """Build the run's ``repro_torch.sim`` scenario models: ``(compute,
+    network, availability)``, or ``(None, None, None)`` for the default
+    scenario (``scenario=None`` or an all-defaults config), the
+    bit-exact legacy path."""
+    if run_cfg.scenario is None or run_cfg.scenario.is_default():
+        return None, None, None
+    return run_cfg.scenario.build(num_clients, run_cfg.seed)
+
+
+def _active(model):
+    """A scenario model that is present and not a declared no-op
+    (ideal network / always-on availability carry ``active = False``)."""
+    return model is not None and getattr(model, "active", True)
 
 
 def _participation_mask(part_rng, participation: float, n: int) -> np.ndarray:
@@ -125,15 +145,37 @@ def _round_broadcast(run_cfg, bcodec, comm, global_params, n, t, down_acc=None):
     return out
 
 
+def _attach_sim_result(res, sched):
+    """Copy the scheduler's per-client simulation ledger onto a
+    ``RunResult`` (event runtime)."""
+    idle = sched.idle_fraction()
+    res.sim_time = float(sched.now)
+    res.idle_fraction = float(idle.mean())
+    res.client_idle = [float(x) for x in idle]
+    res.client_uplink_bytes = [int(x) for x in sched.client_up_bytes]
+    res.client_downlink_bytes = [int(x) for x in sched.client_down_bytes]
+    res.client_failed_rounds = [int(x) for x in sched.client_failed_rounds]
+    return res
+
+
 def _round_helpers(run_cfg, client_eval_fn):
-    """Stacked round inputs: per-client eval, Eq. 1 values, grad norms.
-    Each is computed only when the policy (or the round record) reads it."""
-    sq_diff = _value_fn(run_cfg)
+    """The stacked round inputs of the round and barrier runtimes: the
+    event helpers over N-row stacks, with the config's value backend."""
+    return _event_helpers(run_cfg, client_eval_fn, _value_fn(run_cfg))
+
+
+def _event_helpers(run_cfg, client_eval_fn, sq_diff):
+    """Stacked per-client inputs over a stack of W rows (the event runtime
+    passes size-1 stacks): per-client eval, Eq. 1 values with ``sq_diff``
+    (one call for all W rows: the grad_diff_norm kernel's wrapper unless
+    the config overrides it) and squared gradient norms.  Each is
+    computed only when the policy (or the round record) reads it."""
     N = run_cfg.num_clients
 
     def batch_eval(stacked):
+        rows = tree_leaves(stacked)[0].shape[0]
         return torch.stack([torch.as_tensor(client_eval_fn(stacked_index(stacked, i)))
-                            for i in range(N)])
+                            for i in range(rows)])
 
     def values_fn(gp, gc, accs):
         return value_lib.communication_values_stacked(gp, gc, accs, N, sq_diff_fn=sq_diff)

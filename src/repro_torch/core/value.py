@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common import fp32
 from repro_torch.common.pytree import (stacked_index, tree_leaves, tree_map,
                                        tree_sq_diff_norm, tree_sq_norm)
 from repro_torch.kernels.grad_diff_norm.ops import tree_grad_diff_sq_norm
@@ -24,11 +25,21 @@ def value_base(n_clients, device=None):
     return 1.0 + torch.tensor(float(n_clients), dtype=torch.float32, device=device) / N_SCALE
 
 
+def amplifier(n_clients, accs, device=None):
+    """Eq. 1's (1 + N/10^3)^Acc in fp32, computed on the host with the C
+    library's ``powf``, the function the reference's CPU compile calls
+    (torch's fp32 ``pow`` differs from it in the last bit at some
+    accuracies); returned on ``device``."""
+    if isinstance(accs, torch.Tensor):
+        accs = accs.detach().cpu().numpy()
+    base = float(value_base(n_clients))
+    return torch.from_numpy(fp32.powf(base, accs)).to(device)
+
+
 def communication_value(grad_prev, grad_cur, acc, n_clients):
     """Eq. 1 for one client's pair of gradient trees."""
     diff_sq = tree_sq_diff_norm(grad_prev, grad_cur)
-    acc = torch.as_tensor(acc, dtype=torch.float32, device=diff_sq.device)
-    return (diff_sq * value_base(n_clients, diff_sq.device) ** acc).float()
+    return (diff_sq * amplifier(n_clients, acc, diff_sq.device)).float()
 
 
 def communication_values_stacked(grads_prev, grads_cur, accs, n_clients, *,
@@ -36,8 +47,7 @@ def communication_values_stacked(grads_prev, grads_cur, accs, n_clients, *,
     """Eq. 1 over stacked client trees (leading axis = client) -> (W,).
     ``sq_diff_fn(stacked_a, stacked_b) -> (W,)`` gives the norms."""
     diff_sq = sq_diff_fn(grads_prev, grads_cur)
-    accs = torch.as_tensor(accs, dtype=torch.float32, device=diff_sq.device)
-    return (diff_sq * value_base(n_clients, diff_sq.device) ** accs).float()
+    return (diff_sq * amplifier(n_clients, accs, diff_sq.device)).float()
 
 
 def vafl_threshold(values):

@@ -56,7 +56,11 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.models.registry import get_smoke_config\n"
         "assert get_smoke_config('rwkv6_3b').name == 'rwkv6_3b_smoke'\n"
         "import repro_torch.algorithms.builtin, repro_torch.compress\n"
-        "from repro_torch.core.runtimes import run_round_based\n"
+        "from repro_torch.core.runtimes import run_event_driven, run_round_based\n"
+        "import repro_torch.core.runtimes.sync, repro_torch.core.scheduler\n"
+        "import repro_torch.sim, repro_torch.sim.registry, repro_torch.common.fp32\n"
+        "from repro_torch.sim import get_scenario\n"
+        "assert get_scenario('mobile_fleet').build(3, 0)[1].active\n"
         "from repro_torch.algorithms import get_algorithm\n"
         "assert get_algorithm('vafl').name == 'vafl'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"

@@ -217,7 +217,7 @@ def test_federation_cnn_topk_on_cpu(data):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("scenario", "paper_testbed"), ("obs", True), ("checkpoint_path", "x.ckpt"),
+    ("obs", True), ("checkpoint_path", "x.ckpt"),
     ("resume", True), ("engine", "batched"), ("shard_clients", True), ("eval_cache", 2),
     ("checkpoint_every", 5),
 ])
@@ -229,7 +229,9 @@ def test_config_rejects_unported_fields(field, value):
 def test_event_mode_and_unknown_names_raise(data):
     fed = _fed(data, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fed.run(rounds=1, mode="event")
+        fed.run(rounds=1, mode="event", engine="batched")
+    with pytest.raises(ValueError, match="unknown mode"):
+        fed.run(rounds=1, mode="window")
     with pytest.raises(ValueError, match="registered algorithms"):
         TConfig(algorithm="fedasync_nope")
     with pytest.raises(ValueError):
