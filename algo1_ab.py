@@ -4,13 +4,8 @@ against this checkout's, in turns: the two calls it makes into its
 kernels (``TopKQuantCodec.encode``, ``tree_grad_diff_sq_norm``) on
 chip_smoke.py's inputs, with the CUDA kernels one call runs
 (``torch.profiler``), and seconds per round of chip_smoke.py's main
-path (3 rounds of vafl, then of afl).  Each version times its rounds
-under four cuDNN scopes of the CNN's convolutions, in an order that
-turns with the pair: its own ``models/cnn.py::_cudnn_fp32``, each of
-the two flags this checkout's scope sets (``benchmark=False``,
-``deterministic=True``) alone, and the process-wide flags.  In the
-first PROFILED_PAIRS pairs one vafl round under each is profiled for
-the device time of its kernels.
+path (3 rounds of vafl, then of afl).  In the first PROFILED_PAIRS
+pairs one vafl round is profiled for the device time of its kernels.
 
     mkdir -p build/parent && git archive <commit> src | tar -x -C build/parent
     python3 algo1_ab.py build/parent/src
@@ -27,7 +22,6 @@ import os
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
 from pathlib import Path
 
 import chip_smoke as cs
@@ -36,29 +30,6 @@ ROOT = Path(__file__).resolve().parent
 PAIRS = 10
 PROFILED_PAIRS = 2
 ROUNDS = 3
-# cuDNN scopes of the CNN's convolutions: None is the version's own
-# (benchmark=False, deterministic=True in this checkout); a None flag
-# keeps the process-wide value, as the scope did before Algorithm 1 was
-# made reproducible
-FLAGS = {"own": None,
-         "benchmark=False only": (False, None),
-         "deterministic=True only": (None, True),
-         "process-wide flags": (None, None)}
-
-
-def _scope(benchmark, deterministic):
-    import torch
-    cudnn = torch.backends.cudnn
-
-    @contextmanager
-    def scope():
-        with cudnn.flags(enabled=cudnn.enabled,
-                         benchmark=cudnn.benchmark if benchmark is None else benchmark,
-                         deterministic=(cudnn.deterministic if deterministic is None
-                                        else deterministic),
-                         allow_tf32=False):
-            yield
-    return scope
 
 
 def child(label: str, pair: int) -> None:
@@ -70,7 +41,6 @@ def child(label: str, pair: int) -> None:
     from repro_torch.common.pytree import tree_leaves
     from repro_torch.compress.composed import TopKQuantCodec
     from repro_torch.kernels.grad_diff_norm import ops as gd
-    from repro_torch.models import cnn
 
     def say(**row):
         print(json.dumps(dict(label=label, pair=pair, package=repro_torch.__file__, **row)),
@@ -100,34 +70,24 @@ def child(label: str, pair: int) -> None:
                   lambda: gd.tree_grad_diff_sq_norm(a, b))
 
     fed = cs.algo1_federation()
-    fed.run(rounds=1)      # warm-up: cuDNN plans, kernel libraries loaded
-    names = list(FLAGS)[pair % len(FLAGS):] + list(FLAGS)[:pair % len(FLAGS)]
-    own = cnn._cudnn_fp32
-    cudnn = torch.backends.cudnn
-    for name in names:
-        cnn._cudnn_fp32 = own if FLAGS[name] is None else _scope(*FLAGS[name])
-        flags = {"process_benchmark": cudnn.benchmark,
-                 "process_deterministic": cudnn.deterministic}
-        for alg in ("vafl", "afl"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fed.run(rounds=ROUNDS, algorithm=alg)
-            torch.cuda.synchronize()
-            say(case=f"{alg} seconds per round", flags=name, rounds=ROUNDS,
-                s_per_round=(time.perf_counter() - t0) / ROUNDS,
-                uploads=res.comm.model_uploads, upload_bytes=res.comm.upload_payload_bytes,
-                **flags)
-        if pair >= PROFILED_PAIRS:
-            continue
+    fed.run(rounds=1)      # warm-up: kernel libraries loaded
+    for alg in ("vafl", "afl"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fed.run(rounds=ROUNDS, algorithm=alg)
+        torch.cuda.synchronize()
+        say(case=f"{alg} seconds per round", rounds=ROUNDS,
+            s_per_round=(time.perf_counter() - t0) / ROUNDS,
+            uploads=res.comm.model_uploads, upload_bytes=res.comm.upload_payload_bytes)
+    if pair < PROFILED_PAIRS:
         act = cs.device_activity(lambda: fed.run(rounds=1, algorithm="vafl"))
         per_name = {}
         for kname, us in act["kernels"]:
             per_name[kname] = per_name.get(kname, 0.0) + us
-        say(case="one vafl round, CUDA kernels (torch.profiler)", flags=name,
+        say(case="one vafl round, CUDA kernels (torch.profiler)",
             kernels=len(act["kernels"]), kernel_us=sum(per_name.values()),
             copies=len(act["copies"]), copy_us=sum(us for _, us in act["copies"]),
-            top=sorted(per_name.items(), key=lambda kv: -kv[1])[:8], **flags)
-    cnn._cudnn_fp32 = own
+            top=sorted(per_name.items(), key=lambda kv: -kv[1])[:8])
 
 
 def main() -> None:

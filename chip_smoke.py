@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of repro_torch on one NVIDIA H100: build the four CUDA
 kernels, hold each against its plain PyTorch version on the card, time
-them, and drive the port's three main paths through their public entry
+them, and drive the port's four main paths through their public entry
 points.
 
 1. Algorithm 1:
@@ -16,7 +16,16 @@ points.
    events each), fedavg's round barrier, and vafl under
    ``scenario="mobile_fleet"`` (grad_diff_norm once per vafl event, the
    encode once per accepted upload); ``[event]`` lines.
-3. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
+3. The batched engine on the same federation, ``run(rounds=3,
+   mode="event", engine="batched")``: vafl (full windows of 7), afl with
+   a FedBuff buffer of 4, eaflm in windows of 3, fedasync, vafl under
+   ``mobile_fleet`` and vafl with the dense int8 codec (grad_diff_norm
+   once per vafl window, the encode once per accepted upload under
+   topk0.1_int8); vafl at ``max_batch=1, buffer_size=1`` held bit for
+   bit against the sequential vafl run; then N = 256 clients of the
+   same CNN (afl, buffer 16): the batched engine over 512 events
+   against the sequential loop's first 32; ``[batched]`` lines.
+4. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
    rwkv6_3b at their full published configurations (random weights from
    a seed): 4 prompts of 2048 tokens, 32 greedy tokens each (kernels
    flash_attention and linear_scan in the prefill), then a prefill of
@@ -41,7 +50,8 @@ CUDA device is visible, or when it is not inside a checkout.  The last
 line of its output is one JSON object naming the device; the line
 before it is the card's name and power limit (``nvidia-smi``), and the
 line before that the per-kernel JSON (launches, max error, times,
-bound; ``event_*`` fields for the event path).  It imports neither JAX
+bound; ``event_*`` fields for the event path, ``batched_launches``
+for the batched engine).  It imports neither JAX
 nor the JAX package.
 """
 from __future__ import annotations
@@ -60,6 +70,7 @@ TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 on the tensor cores
 GD_SHAPES = [(7, 42698), (1, 2 ** 24 + 123)]   # main path: 7 clients x CNN params
 TQ_SIZES = [42698, 2 ** 24 + 123]
 RESIDENT_LIMIT = 8 * 13312 * 4   # elements of one leaf the encode's resident route takes
+PROFILER_TRIES = 10              # readings of one call before an empty profile fails
 # tree_grad_diff_sq_norm cases: (leaves, W); the CNN at W = 7 is a round's
 # call, at W = 1 an event's
 GRAD_TREES = [("cnn", 7), ("cnn1", 1), ("one", 1)]
@@ -306,17 +317,18 @@ def device_activity(fn) -> dict:
 
 def _device_kernels(fn, expected: int, what: str) -> dict:
     """``device_activity`` of one call of ``fn``.  A reading with no
-    kernel at all (the profiler now and then drops a call's records) is
-    taken again, up to three times; a reading of another number of CUDA
-    kernels than ``expected`` fails, and so do three empty ones."""
-    for _ in range(3):
+    kernel at all (the profiler now and then drops a call's records, on
+    a loaded host three times running) is taken again, up to
+    ``PROFILER_TRIES`` times; a reading of another number of CUDA kernels
+    than ``expected`` fails, and so do that many empty ones."""
+    for _ in range(PROFILER_TRIES):
         act = device_activity(fn)
         if act["kernels"]:
             if len(act["kernels"]) != expected:
                 fail(f"{what}: {len(act['kernels'])} CUDA kernels a call, expected "
                      f"{expected}: {act}")
             return act
-    fail(f"{what}: the profiler recorded no CUDA kernel in three calls")
+    fail(f"{what}: the profiler recorded no CUDA kernel in {PROFILER_TRIES} calls")
 
 
 def _leaf_shapes(model: str) -> list:
@@ -701,7 +713,7 @@ def phase_main_path():
         seen["params"] = p
         return ev(p)
     fed.evaluate_fn = capture
-    fed.run(rounds=1)      # warm-up: cuDNN plans, kernel libraries loaded
+    fed.run(rounds=1)      # warm-up: kernel libraries loaded
     torch.cuda.synchronize()
 
     read = _reset_launches()
@@ -758,24 +770,32 @@ EVENT_RUNS = [("vafl", None), ("afl", None), ("eaflm", None), ("fedavg", None),
 
 def busy_share(fn) -> tuple:
     """One profiled call of ``fn`` (``torch.profiler``): its CUDA kernels'
-    summed device time over the call's synchronized host time, and the
-    number of kernels.  A reading with no kernel at all is taken again,
-    up to three times; three empty ones fail."""
+    summed device time over the call's synchronized host time, the
+    number of kernels, the host seconds and ``top``: (name, launches,
+    device ms) of the kernels that took the most device time.  A reading
+    with no kernel at all is taken again, up to ``PROFILER_TRIES`` times;
+    that many empty ones fail."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(PROFILER_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             h0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - h0
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and not e.name.startswith(("Memcpy", "Memset"))]
-        if us:
-            return sum(us) / 1e6 / wall, len(us), wall
-    fail("the profiler recorded no CUDA kernel in three profiled event runs")
+        kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        if kernels:
+            by_name = {}
+            for name, us in kernels:
+                n, t = by_name.get(name, (0, 0.0))
+                by_name[name] = (n + 1, t + us)
+            top = sorted(((name[:60], n, t / 1e3) for name, (n, t) in by_name.items()),
+                         key=lambda row: -row[2])[:6]
+            return sum(us for _, us in kernels) / 1e6 / wall, len(kernels), wall, top
+    fail(f"the profiler recorded no CUDA kernel in {PROFILER_TRIES} profiled runs")
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -863,6 +883,8 @@ def phase_event_path():
         gd, tq = gd_ops.launches - g0, tq_ops.launches - t0
         name = alg + (f"@{scenario}" if scenario else "")
         runs[name] = (res, secs, gd, tq)
+        if name == "vafl":   # the batched phase's W = 1 run is held against it
+            vafl_params = [x.detach().clone() for x in tree_leaves(seen["params"])]
         if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(seen["params"])):
             fail(f"event {name}: non-finite global parameters")
         for r in res.records:
@@ -895,7 +917,7 @@ def phase_event_path():
     if fedavg.idle_fraction <= afl.idle_fraction:
         fail(f"fedavg's idle fraction {fedavg.idle_fraction} is not above afl's "
              f"{afl.idle_fraction}")
-    share, kernels, wall = busy_share(lambda: fed.run(rounds=1, mode="event"))
+    share, kernels, wall, _ = busy_share(lambda: fed.run(rounds=1, mode="event"))
     say(f"[event] one profiled vafl event run (7 events, torch.profiler): {kernels} CUDA "
         f"kernels, device busy {share:.1%} of {wall:.4f} s")
     parts = event_breakdown(fed)
@@ -904,7 +926,192 @@ def phase_event_path():
         + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
         + f"; their sum {sum(parts.values()):.3f} of {per_event:.3f} ms an event")
     return ((counts["grad_diff_norm"], counts["topk_quant"]),
-            {name: secs for name, (_, secs, _, _) in runs.items()}, share)
+            {name: secs for name, (_, secs, _, _) in runs.items()}, share,
+            (runs["vafl"][0], vafl_params, kernels))
+
+
+BATCHED_RUNS = [   # (name, Federation.run overrides) on the main path's federation
+    ("vafl", dict(algorithm="vafl", max_batch=0, buffer_size=1)),
+    ("afl K=4", dict(algorithm="afl", buffer_size=4)),
+    ("eaflm W=3", dict(algorithm="eaflm", max_batch=3)),
+    ("fedasync", dict(algorithm="fedasync")),
+    ("vafl@mobile_fleet", dict(algorithm="vafl", scenario="mobile_fleet")),
+    ("vafl int8", dict(algorithm="vafl", compressor="int8")),
+]
+SCALE = dict(clients=256, samples=200, buffer_size=16, seq_events=32)
+
+
+class _Stop(Exception):
+    pass
+
+
+def _windows(events: int, clients: int, max_batch: int) -> int:
+    w = max_batch if max_batch > 0 else clients
+    w = max(1, min(w, clients))
+    return -(-events // w)
+
+
+def _run_batched(fed, name, kw, seen):
+    """One batched run of 3 rounds, checked; returns (result, seconds,
+    grad_diff_norm launches, encode launches, windows)."""
+    import torch
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.kernels.grad_diff_norm import ops as gd_ops
+    from repro_torch.kernels.topk_quant import ops as tq_ops
+    g0, t0 = gd_ops.launches, tq_ops.launches
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    res = fed.run(rounds=3, mode="event", engine="batched", **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - h0
+    gd, tq = gd_ops.launches - g0, tq_ops.launches - t0
+    n = len(fed.data.counts)
+    events = 3 * n
+    windows = _windows(events, n, kw.get("max_batch", 0))
+    if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(seen["params"])):
+        fail(f"batched {name}: non-finite global parameters")
+    for r in res.records:
+        if not 0.0 <= r.global_acc <= 1.0:
+            fail(f"batched {name}: accuracy {r.global_acc} out of [0, 1]")
+    if res.records[-1].round != events:
+        fail(f"batched {name}: the last record is at event {res.records[-1].round}")
+    codec = kw.get("compressor", fed.config.compressor)
+    say(f"[batched] {name}: {events} events in {windows} windows, model_uploads "
+        f"{res.comm.model_uploads}, scalar_reports {res.comm.scalar_reports}, uplink bytes "
+        f"{res.comm.uplink_bytes}, downlink bytes {res.comm.downlink_bytes}, sim_time "
+        f"{res.sim_time:.6f}, idle_fraction {res.idle_fraction:.6f}, best acc "
+        f"{res.best_acc:.4f}, {secs:.4f} s host ({secs / windows:.4f} s per window, "
+        f"{secs / events:.4f} s per event, {events / secs:.3f} events/s, synchronized), "
+        f"kernel launches grad_diff_norm {gd}, topk_quant {tq}")
+    want_gd = windows if kw["algorithm"] == "vafl" else 0
+    if gd != want_gd:
+        fail(f"batched {name}: grad_diff_norm launched {gd} times, expected {want_gd} "
+             f"(one a vafl window)")
+    want_tq = res.comm.model_uploads if codec == "topk0.1_int8" else 0
+    if tq != want_tq:
+        fail(f"batched {name}: {tq} topk_int8 encode calls, expected {want_tq} (one an "
+             f"accepted upload under topk0.1_int8)")
+    return res, secs, gd, tq, windows
+
+
+def _scale_federation():
+    """N = 256 clients of the paper's CNN on the IID partition, 200
+    synthetic-MNIST samples each, afl, identity codec, on the card."""
+    from repro_torch.core.client import LocalSpec
+    from repro_torch.core.federation import Federation
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.synthetic import synthetic_mnist
+    n, m = SCALE["clients"], SCALE["samples"]
+    xtr, ytr, xte, yte = synthetic_mnist(n * m, 2000, seed=0)
+    data = iid_partition(xtr, ytr, n, samples_per_client=m, seed=0)
+    return Federation(model="cnn", data=data, test_data=(xte, yte), algorithm="afl",
+                      local=LocalSpec(batch_size=32, local_epochs=1, local_rounds=1, lr=0.1),
+                      device="cuda")
+
+
+def phase_scale():
+    """N = 256: the batched engine over 2 rounds (512 events, buffer 16)
+    against the sequential loop over its first 32 events, and the busy
+    share of one profiled batched window."""
+    import torch
+    fed = _scale_federation()
+    fed.run(rounds=1, mode="event", engine="batched", buffer_size=SCALE["buffer_size"])
+    torch.cuda.synchronize()                      # warm-up: one window of 256
+    n = SCALE["clients"]
+    h0 = time.perf_counter()
+    res = fed.run(rounds=2, mode="event", engine="batched", buffer_size=SCALE["buffer_size"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - h0
+    if res.records[-1].round != 2 * n or not all(0 <= r.global_acc <= 1 for r in res.records):
+        fail(f"N={n} batched: records {[(r.round, r.global_acc) for r in res.records]}")
+    # the sequential loop, stopped after SCALE["seq_events"] events: timed
+    # from its first event's local update to the start of event 33
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    marks = {}
+
+    def perm_fn(i, ev, e, m):
+        if ev == 0 and 0 not in marks:
+            torch.cuda.synchronize()
+            marks[0] = time.perf_counter()
+        if ev == SCALE["seq_events"]:
+            torch.cuda.synchronize()
+            marks[ev] = time.perf_counter()
+            raise _Stop
+        return torch.randperm(m, generator=gen, device="cuda")
+    try:
+        fed.run(rounds=1, mode="event", perm_fn=perm_fn)
+        fail("the sequential loop at N=256 ran to its end instead of stopping at event 32")
+    except _Stop:
+        pass
+    seq_secs = (marks[SCALE["seq_events"]] - marks[0]) / SCALE["seq_events"]
+    share, kernels, wall, top = busy_share(lambda: fed.run(
+        rounds=1, mode="event", engine="batched", buffer_size=SCALE["buffer_size"]))
+    say(f"[batched] N={n} afl identity K={SCALE['buffer_size']}: {2 * n} events in 2 windows, "
+        f"model_uploads {res.comm.model_uploads}, best acc {res.best_acc:.4f}, {secs:.4f} s host "
+        f"({secs / 2:.4f} s per window, {secs / (2 * n):.6f} s per event, "
+        f"{2 * n / secs:.3f} events/s); sequential loop {seq_secs:.4f} s per event "
+        f"({1 / seq_secs:.3f} events/s, first {SCALE['seq_events']} events); batched / "
+        f"sequential events/s {2 * n / secs * seq_secs:.2f}x; one profiled window of {n}: "
+        f"{kernels} CUDA kernels, device busy {share:.1%} of {wall:.4f} s")
+    say(f"[batched] N={n} window, top kernels by device time (name, launches, ms): {top}")
+    return {"events_per_s": 2 * n / secs, "seq_events_per_s": 1 / seq_secs, "busy": share}
+
+
+def phase_batched_path(seq_vafl):
+    """``Federation.run(rounds=3, mode="event", engine="batched")`` on the
+    main path's federation (``BATCHED_RUNS``), vafl at max_batch=1,
+    buffer_size=1 held bit for bit against the event phase's sequential
+    vafl, then the N = 256 federation (``phase_scale``).  grad_diff_norm
+    must launch once per vafl window and never otherwise, the encode
+    once per accepted upload under topk0.1_int8, and no serving kernel."""
+    import torch
+    from repro_torch.common.pytree import tree_leaves
+
+    fed = algo1_federation()
+    seen = {}
+    ev = fed.evaluate_fn
+
+    def capture(p):
+        seen["params"] = p
+        return ev(p)
+    fed.evaluate_fn = capture
+    fed.run(rounds=1, mode="event", engine="batched")   # warm-up: one window of 7
+    torch.cuda.synchronize()
+
+    read = _reset_launches()
+    runs = {name: _run_batched(fed, name, kw, seen) for name, kw in BATCHED_RUNS}
+    counts = read()                              # read just after the batched path
+    if counts["flash_attention"] or counts["linear_scan"]:
+        fail(f"the batched path launched a serving kernel: {counts}")
+    vafl, afl = runs["vafl"][0], runs["afl K=4"][0]
+    if vafl.comm.model_uploads > afl.comm.model_uploads:
+        fail(f"batched vafl uploaded more than afl ({vafl.comm.model_uploads} > "
+             f"{afl.comm.model_uploads})")
+    # the engine contract on the card: W = 1, K = 1 is the sequential loop
+    res, secs, gd, tq, windows = _run_batched(
+        fed, "vafl W=1 K=1", dict(algorithm="vafl", max_batch=1, buffer_size=1), seen)
+    seq, seq_params, seq_kernels = seq_vafl
+    same = (vars(res.comm) == vars(seq.comm) and res.sim_time == seq.sim_time
+            and res.client_uplink_bytes == seq.client_uplink_bytes
+            and all(torch.equal(a, b) for a, b in zip(tree_leaves(seen["params"]), seq_params)))
+    say(f"[batched] W=1 K=1 against the sequential vafl run: uploads "
+        f"{res.comm.model_uploads} / {seq.comm.model_uploads}, bytes {res.comm.uplink_bytes} / "
+        f"{seq.comm.uplink_bytes}, sim_time {res.sim_time!r} / {seq.sim_time!r}, final "
+        f"parameters {'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        fail("the batched engine at max_batch=1, buffer_size=1 differs from the sequential loop")
+    share, kernels, wall, top = busy_share(lambda: fed.run(rounds=1, mode="event",
+                                                           engine="batched"))
+    say(f"[batched] one profiled full window of 7 (vafl, torch.profiler): {kernels} CUDA kernels "
+        f"against {seq_kernels} for 7 sequential events, device busy {share:.1%} of "
+        f"{wall:.4f} s; top kernels by device time (name, launches, ms): {top}")
+    if kernels * 2 > seq_kernels:
+        fail(f"a window of 7 launched {kernels} CUDA kernels, not under half of 7 sequential "
+             f"events' {seq_kernels}: its local SGD is not one batched computation")
+    scale = phase_scale()
+    return ((counts["grad_diff_norm"], counts["topk_quant"]),
+            {name: (r[1], r[4], 3 * len(fed.data.counts)) for name, r in runs.items()},
+            share, scale)
 
 
 def main() -> None:
@@ -920,8 +1127,14 @@ def main() -> None:
     say(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)} ({smi})")
 
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     phase_build()
     sass = phase_sass()
+    mark("build")
     gd_rows, tq_rows, fa_rows, ls_rows, tree_rows, enc_rows = {}, {}, [], [], {}, {}
     phase_grad_diff_norm(gd_rows)
     phase_grad_tree(tree_rows)
@@ -929,8 +1142,13 @@ def main() -> None:
     phase_encode(enc_rows)
     phase_flash_attention(fa_rows)
     phase_linear_scan(ls_rows)
+    mark("kernels")
     (gd_launches, tq_launches), secs = phase_main_path()
-    (ev_gd, ev_tq), ev_secs, ev_busy = phase_event_path()
+    mark("main")
+    (ev_gd, ev_tq), ev_secs, ev_busy, seq_vafl = phase_event_path()
+    mark("event")
+    (b_gd, b_tq), b_secs, b_busy, scale = phase_batched_path(seq_vafl)
+    mark("batched")
     # rwkv6_3b's prefill-vs-decode check is gated in fp32: at bf16 the
     # random-weight stack's two paths drift apart with depth in the
     # reference as in the port (PERF.md §6; the bf16 gate at depth 2 is
@@ -938,6 +1156,9 @@ def main() -> None:
     # holds 2e-2 in bf16 at full depth
     served = {"starcoder2_3b": phase_serve("starcoder2_3b", "flash_attention", "bfloat16"),
               "rwkv6_3b": phase_serve("rwkv6_3b", "linear_scan", "float32")}
+    mark("serve")
+    say("[time] phases (host seconds): " + ", ".join(
+        f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 
     for row in list(gd_rows.values()) + list(tq_rows.values()) + fa_rows + ls_rows:
         say("[time] " + json.dumps(row))
@@ -951,7 +1172,8 @@ def main() -> None:
                    tree_ms=tree["ms"], tree_plain_ms=tree["plain_ms"],
                    tree_cuda_launches_per_call=tree["cuda_launches_per_call"],
                    event_launches=ev_gd, event_tree_case=one["case"], event_tree_ms=one["ms"],
-                   event_tree_plain_ms=one["plain_ms"], event_tree_bound_ms=one["bound_ms"])
+                   event_tree_plain_ms=one["plain_ms"], event_tree_bound_ms=one["bound_ms"],
+                   batched_launches=b_gd)
     # the topk_quant row times what the main path launches, the encode;
     # the elementwise entry (off the path, held against ref.topk_quant)
     # keeps its figures under elementwise_*
@@ -962,7 +1184,7 @@ def main() -> None:
                    elementwise_shape=ew["shape"], elementwise_ms=ew["ms"],
                    elementwise_plain_ms=ew["plain_ms"], elementwise_bound_ms=ew["bound_ms"],
                    elementwise_bound_by=ew["bound_by"], elementwise_max_abs_err=ew["max_abs_err"],
-                   event_launches=ev_tq)
+                   event_launches=ev_tq, batched_launches=b_tq)
     main_fa = dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"],
                    tensor_core_instructions=sass["flash_attention"])
     main_ls = dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"],
@@ -975,6 +1197,13 @@ def main() -> None:
                     f"({(3 if name == 'fedavg' else 21) / t:.3f}/s)"
                     for name, t in ev_secs.items())
         + f"; device busy {ev_busy:.1%} of a profiled vafl event run")
+    say("[time] batched path (host clock, synchronized): "
+        + ", ".join(f"{name} {t / w:.4f} s per window, {t / e:.4f} s per event ({e / t:.3f}/s)"
+                    for name, (t, w, e) in b_secs.items())
+        + f"; device busy {b_busy:.1%} of a profiled window of 7; N={SCALE['clients']}: "
+        f"batched {scale['events_per_s']:.3f} events/s, sequential "
+        f"{scale['seq_events_per_s']:.3f} events/s, device busy {scale['busy']:.1%} of a "
+        f"profiled window")
     for arch, row in (("starcoder2_3b", main_fa), ("rwkv6_3b", main_ls)):
         st = served[arch]
         share = st["launches"] * row["ms"] / 1e3 / st["prefill_s"]

@@ -1,7 +1,6 @@
 """The pluggable FL algorithm protocol.  Port of
 ``repro.algorithms.base`` without the traced SPMD gate
-(``gate_stacked``) and the FedBuff flush (``flush_mix``), which come
-with the distributed step and the batched engine.
+(``gate_stacked``), which comes with the distributed step.
 
 An algorithm is two small objects behind a string registry
 (``get_algorithm("vafl")``):
@@ -148,6 +147,11 @@ class Aggregator:
     def mix(self, global_params, recon, rho_s):
         """Single-arrival async mix."""
         return _agg().async_mix(global_params, recon, rho_s)
+
+    def flush_mix(self, global_params, src, rows, coef, rho_sbar):
+        """FedBuff-style buffer flush: staleness-weighted mean of the
+        buffered rows of ``src``, then one async mix."""
+        return _agg().flush_mix(global_params, src, rows, coef, rho_sbar)
 
     def round_aggregate(self, global_params, stacked_params, mask, counts):
         """Masked weighted FedAvg (Algorithm 1 line 16); keeps the old

@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 
 _REGISTRY: Dict[str, object] = {}
 _BUILTIN_OWNED: set = set()   # names whose current entry came from a builtin
-_BUILTIN_MODULES = ("repro_torch.algorithms.builtin",)
+_BUILTIN_MODULES = ("repro_torch.algorithms.builtin", "repro_torch.algorithms.fedasync")
 _builtins_loaded = False
 
 

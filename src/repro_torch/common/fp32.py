@@ -12,15 +12,39 @@ amplifier and every mixed parameter:
   same C function.
 * ``fma``: XLA fuses ``a * x + y`` into one fused multiply-add, rounded
   once; torch rounds the product and then the sum.
+
+On the card a third setting decides the bits: ``ieee()`` keeps the
+model's matmuls and cuDNN's convolutions in IEEE fp32 whatever the
+process-wide TF32 flags say.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import ctypes.util
 import functools
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def ieee():
+    """Run the enclosed CUDA matmuls in IEEE fp32 and cuDNN's
+    convolutions in IEEE fp32 with deterministic algorithms, whatever the
+    process-wide flags say: ``torch.set_float32_matmul_precision("high")``
+    or cuDNN's ``allow_tf32``, which is on by default, would round their
+    inputs to TF32's 10-bit mantissa.  The flags are restored on exit.
+    Inert on the CPU."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                         allow_tf32=False):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 @functools.lru_cache(maxsize=None)

@@ -117,12 +117,31 @@ def tree_broadcast(tree, n: int):
     return tree_map(lambda x: x.unsqueeze(0).expand((n,) + tuple(x.shape)), tree)
 
 
+def _rows(idx, device):
+    return torch.as_tensor(idx, dtype=torch.long, device=device)
+
+
+def tree_gather(stacked, idx):
+    """Rows ``idx`` of a stacked tree, as a (W, ...) stacked tree.
+    ``idx`` is a sequence of ints or an integer tensor."""
+    return tree_map(lambda x: x[_rows(idx, x.device)], stacked)
+
+
+def tree_scatter_(stacked, idx, rows):
+    """Write the (W, ...) stacked ``rows`` into rows ``idx`` of
+    ``stacked`` in place (``index_copy_``, one call per leaf); returns
+    ``stacked``."""
+    for s, u in zip(tree_leaves(stacked), tree_leaves(rows)):
+        s.index_copy_(0, _rows(idx, s.device), u.to(s.dtype))
+    return stacked
+
+
 def tree_scatter(stacked, idx, rows):
     """Write the (W, ...) stacked ``rows`` into rows ``idx`` of
     ``stacked``, out of place.  ``idx`` is a sequence of ints or an
     integer tensor."""
     def put(s, u):
         s = s.clone()
-        s[torch.as_tensor(idx, dtype=torch.long, device=s.device)] = u.to(s.dtype)
+        s[_rows(idx, s.device)] = u.to(s.dtype)
         return s
     return tree_map(put, stacked, rows)

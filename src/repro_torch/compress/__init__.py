@@ -6,4 +6,5 @@ from repro_torch.compress.base import (Codec, IdentityCodec, Payload,  # noqa: F
 from repro_torch.compress.composed import TopKQuantCodec  # noqa: F401
 from repro_torch.compress.error_feedback import (ErrorFeedback,  # noqa: F401
                                                  compress_update)
+from repro_torch.compress.quantize import QuantCodec  # noqa: F401
 from repro_torch.compress.sparsify import TopKCodec  # noqa: F401

@@ -10,10 +10,10 @@ Spec strings accepted by :func:`get_codec`:
   "identity" | "none" | ""      no-op, nbytes = full fp32 tree
   "topk" / "topk0.05"           magnitude sparsification, fp32 values +
                                 int32 indices (default fraction 0.1)
+  "int8" / "int4"               dense stochastic uniform quantization,
+                                per-leaf symmetric scale (plain torch ops)
   "topk_int8" / "topk0.05_int8" top-k, then stochastic int8 values: the
                                 topk_quant kernel
-
-The dense "int8" / "int4" codecs of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -84,17 +84,12 @@ def register(name: str):
 
 
 _TOPK_RE = re.compile(r"topk(\d*\.?\d+)?(_int8)?$")
-_NOT_PORTED = ("int8", "int4")
 
 
 def get_codec(spec: Optional[str]) -> Codec:
     """Parse a codec spec string (module docstring grammar) to a Codec."""
     if spec is None or spec in ("", "none", "identity"):
         return IdentityCodec()
-    if spec in _NOT_PORTED:
-        raise NotImplementedError(
-            f"codec {spec!r} is not ported yet (ROADMAP.md, queue 1 item 5: "
-            "the dense int8/int4 codecs)")
     if spec in _REGISTRY:
         return _REGISTRY[spec]()
     m = _TOPK_RE.fullmatch(spec)
@@ -105,4 +100,4 @@ def get_codec(spec: Optional[str]) -> Codec:
         factory = _REGISTRY["topk_int8" if m.group(2) else "topk"]
         return factory(frac)
     raise ValueError(f"unknown codec spec {spec!r} "
-                     f"(known: identity, topk[frac], topk[frac]_int8)")
+                     f"(known: identity, int8, int4, topk[frac], topk[frac]_int8)")

@@ -1,28 +1,35 @@
 """Client-side local training.  Port of ``repro.core.client``.
 
-Client state is a stacked tree (leading axis = client), as in the
-reference; the update walks the clients in a Python loop where the
-reference vmaps them.  Per-client sample masks handle quantity skew.
+Client state is a stacked tree (leading axis = client), and a call
+trains all of its W rows as one batched computation, as the
+reference's vmapped update does: ``torch.func.vmap`` of the per-client
+loss gives the W losses, and autograd differentiates their sum, in
+which row i's parameters reach only loss i, so each row gets its own
+client's gradient.  One SGD step of W clients launches the kernels of
+one step (on the card the CNN's convolutions are batched GEMMs,
+``models/cnn.py``).  Per-client sample masks handle quantity skew.
 
 The "effective gradient" of a local round is (theta_start - theta_end)/lr,
 the quantity whose round-over-round difference feeds Eq. 1.
 
 Randomness comes from the run's ``torch.Generator``: one permutation of
-the client's M (padded) samples per local epoch.  ``perm_fn(client,
-step, epoch, M) -> LongTensor`` replaces those draws, so tests can hand
-both packages the same permutations.
+the client's M (padded) samples per local epoch, drawn row by row in
+the call's draw order before the step loop, so a client's draws do not
+depend on how many clients share its call.  ``perm_fn(client, step,
+epoch, M) -> LongTensor`` replaces those draws, so tests can hand both
+packages the same permutations.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.common.pytree import (stacked_index, tree_flatten, tree_map,
-                                       tree_sq_diff_norm, tree_sq_norm,
-                                       tree_stack, tree_unflatten)
+from repro_torch.common import fp32
+from repro_torch.common.pytree import tree_flatten, tree_sq_diff_norm, tree_unflatten
 
 
 @dataclass(frozen=True)
@@ -47,66 +54,127 @@ def make_local_update(loss_fn: Callable, spec: LocalSpec,
 
     update(stacked_params, data, generator, step, clients) -> (new_params, eff_grad, mean_loss)
 
-    over stacked clients, with data {"images": (N,M,...), "labels": (N,M),
-    "mask": (N,M)} on the parameters' device, ``step`` the call's index
-    (the round in the round runtime, the event in the event runtime) and
-    ``clients`` the client id of each row (default 0..N-1), both passed
-    on to ``perm_fn``."""
-    B, lr = spec.batch_size, spec.lr
-    n_ep = spec.local_epochs * spec.local_rounds
-
-    def one_client(i, params, images, labels, mask, gen, step):
-        M = images.shape[0]
-        # small / non-IID shards: clamp the effective batch to the shard size
-        b = min(B, M)
-        nb = max(M // b, 1)
-        p0 = params   # the downloaded global model (FedProx anchor / DP base)
-        leaves, treedef = tree_flatten(params)
-        leaves = [x.detach() for x in leaves]
-        ep_means = []
-        for e in range(n_ep):
-            perm = (perm_fn(i, step, e, M) if perm_fn is not None else
-                    torch.randperm(M, generator=gen, device=gen.device))
-            perm = perm.to(images.device)[:nb * b]
-            xb = images[perm].reshape(nb, b, *images.shape[1:])
-            yb = labels[perm].reshape(nb, b)
-            wb = mask[perm].reshape(nb, b)
-            losses = []
-            for s in range(nb):
-                req = [x.requires_grad_(True) for x in leaves]
-                p = tree_unflatten(treedef, req)
-                loss, _ = loss_fn(p, {"images": xb[s], "labels": yb[s], "weights": wb[s]})
-                if spec.prox_mu:
-                    loss = loss + 0.5 * spec.prox_mu * tree_sq_diff_norm(p, p0)
-                grads = torch.autograd.grad(loss, req)
-                with torch.no_grad():
-                    leaves = [(x.float() - lr * g.float()).to(x.dtype)
-                              for x, g in zip(req, grads)]
-                losses.append(loss.detach())
-            ep_means.append(torch.mean(torch.stack(losses)))
-        newp = tree_unflatten(treedef, leaves)
-        if spec.dp_clip:
-            # clip the round delta and add Gaussian noise (DP-FedAvg client op)
-            delta = tree_map(lambda a, c: a.float() - c.float(), newp, p0)
-            nrm = torch.sqrt(tree_sq_norm(delta))
-            scale = torch.clamp_max(spec.dp_clip / torch.clamp_min(nrm, 1e-9), 1.0)
-            sigma = spec.dp_clip * spec.dp_noise
-            delta = tree_map(lambda d: d * scale + sigma * torch.randn(
-                d.shape, generator=gen, device=gen.device).to(d.device), delta)
-            newp = tree_map(lambda c, d: (c.float() + d).to(c.dtype), p0, delta)
-        eff_grad = tree_map(lambda a, c: (a.float() - c.float()) / lr, params, newp)
-        return newp, eff_grad, torch.mean(torch.stack(ep_means))
+    over stacked clients, with data {"images": (W,M,...), "labels": (W,M),
+    "mask": (W,M)} on the parameters' device, ``step`` the call's index
+    (the round in the round runtime, the event in the sequential loop,
+    the window's first event in the batched engine) and ``clients`` the
+    client id of each row (default 0..W-1), both passed on to
+    ``perm_fn``.  Rows draw their randomness in row order."""
+    run = _build_local_update(loss_fn, spec, perm_fn)
 
     def update(stacked_params, data, generator, step: int = 0, clients=None):
         n = data["labels"].shape[0]
-        clients = range(n) if clients is None else clients
-        outs = [one_client(c, stacked_index(stacked_params, i), data["images"][i],
-                           data["labels"][i], data["mask"][i], generator, step)
-                for i, c in enumerate(clients)]
-        return (tree_stack([o[0] for o in outs]), tree_stack([o[1] for o in outs]),
-                torch.stack([o[2] for o in outs]))
+        clients = list(range(n)) if clients is None else [int(c) for c in clients]
+        return run(stacked_params, data, generator, step, clients, list(range(n)))
 
     return update
+
+
+def make_local_update_keyed(loss_fn: Callable, spec: LocalSpec,
+                            perm_fn: Optional[Callable] = None):
+    """The batched engine's full-window form of ``make_local_update``:
+
+    update_keyed(stacked_params, data, generator, step, order) -> (new_params, eff_grad, mean_loss)
+
+    over all N clients in CLIENT order (row c is client c), where
+    ``order`` is the window's arrival order of client ids: client
+    ``order[j]`` draws its randomness at position j, as it would in the
+    gathered form, so the two forms agree row for row.  Shares the
+    per-window body with ``make_local_update``."""
+    run = _build_local_update(loss_fn, spec, perm_fn)
+
+    def update_keyed(stacked_params, data, generator, step: int, order):
+        order = [int(c) for c in order]
+        return run(stacked_params, data, generator, step, order, order)
+
+    return update_keyed
+
+
+def _build_local_update(loss_fn: Callable, spec: LocalSpec, perm_fn: Optional[Callable]):
+    B, lr = spec.batch_size, spec.lr
+    n_ep = spec.local_epochs * spec.local_rounds
+
+    def weighted(treedef, leaves, x, y, w, anchor):
+        p = tree_unflatten(treedef, leaves)
+        loss, _ = loss_fn(p, {"images": x, "labels": y, "weights": w})
+        if spec.prox_mu:
+            loss = loss + 0.5 * spec.prox_mu * tree_sq_diff_norm(
+                p, tree_unflatten(treedef, anchor))
+        return loss
+
+    def draws(gen, step, clients, M, shapes, device):
+        """Each client's epoch permutations, and under DP its noise, in
+        draw order: ``clients[j]`` is the j-th client to draw."""
+        perms, noise = [], []
+        for c in clients:
+            perms.append(torch.stack([
+                (perm_fn(c, step, e, M) if perm_fn is not None else
+                 torch.randperm(M, generator=gen, device=gen.device)).to(device)
+                for e in range(n_ep)]))
+            if spec.dp_clip:
+                noise.append([torch.randn(s, generator=gen, device=gen.device).to(device)
+                              for s in shapes])
+        return perms, noise
+
+    def run(stacked_params, data, gen, step, clients, rows):
+        """Train row ``rows[j]`` with the j-th client's draws."""
+        images, labels, mask = data["images"], data["labels"], data["mask"]
+        W, M = labels.shape
+        # small / non-IID shards: clamp the effective batch to the shard size
+        b = min(B, M)
+        nb = max(M // b, 1)
+        leaves, treedef = tree_flatten(stacked_params)
+        p0 = [x.detach() for x in leaves]   # the downloaded models (FedProx / DP base)
+        perms_j, noise_j = draws(gen, step, clients, M, [x.shape[1:] for x in p0],
+                                 images.device)
+        if rows == list(range(W)):
+            perms = torch.stack(perms_j)
+        else:   # arrival-order draws into client-order rows
+            perms = torch.empty((W, n_ep, M), dtype=torch.long, device=images.device)
+            perms[torch.as_tensor(rows, device=images.device)] = torch.stack(perms_j)
+        losses_fn = torch.func.vmap(partial(weighted, treedef))
+        ar = torch.arange(W, device=images.device)[:, None]
+        cur = p0
+        ep_means = []
+        # forward and backward in IEEE fp32 whatever the process-wide
+        # TF32 flags say (the CNN's GEMM route scopes its forward too)
+        with fp32.ieee():
+            for e in range(n_ep):
+                pe = perms[:, e, :nb * b]
+                xb = images[ar, pe].reshape((W, nb, b) + tuple(images.shape[2:]))
+                yb = labels[ar, pe].reshape(W, nb, b)
+                wb = mask[ar, pe].reshape(W, nb, b)
+                losses = []
+                for s in range(nb):
+                    req = [x.detach().requires_grad_(True) for x in cur]
+                    loss = losses_fn(req, xb[:, s], yb[:, s], wb[:, s], p0)
+                    # row i's parameters reach only loss i: the gradient of the
+                    # sum is each client's own gradient, exactly
+                    grads = torch.autograd.grad(loss.sum(), req)
+                    with torch.no_grad():
+                        cur = [(x.float() - lr * g.float()).to(x.dtype) for x, g in zip(req, grads)]
+                    losses.append(loss.detach())
+                ep_means.append(torch.mean(torch.stack(losses), 0))
+        if spec.dp_clip:
+            # clip each row's round delta and add Gaussian noise (DP-FedAvg client op)
+            delta = [a.float() - c.float() for a, c in zip(cur, p0)]
+            sq = torch.zeros(W, dtype=torch.float32, device=images.device)
+            for d in delta:
+                sq = sq + torch.sum(torch.square(d).reshape(W, -1), 1)
+            scale = torch.clamp_max(spec.dp_clip / torch.clamp_min(torch.sqrt(sq), 1e-9), 1.0)
+            sigma = spec.dp_clip * spec.dp_noise
+            noise = [torch.empty_like(d) for d in delta]
+            for j, r in enumerate(rows):
+                for k in range(len(delta)):
+                    noise[k][r] = noise_j[j][k]
+            cur = [(c.float() + (d * scale.reshape((W,) + (1,) * (d.dim() - 1))
+                                 + sigma * z)).to(c.dtype) for c, d, z in zip(p0, delta, noise)]
+        newp = tree_unflatten(treedef, cur)
+        eff_grad = tree_unflatten(treedef, [(a.float() - c.float()) / lr
+                                            for a, c in zip(p0, cur)])
+        return newp, eff_grad, torch.mean(torch.stack(ep_means), 0)
+
+    return run
 
 
 def make_weighted_classifier_loss(forward_fn, cfg):
@@ -154,6 +222,7 @@ def make_evaluator(forward_fn, cfg, test_images, test_labels, batch: int = 1000,
     inv_n = float(np.float32(1.0) / np.float32(n))
 
     @torch.no_grad()
+    @fp32.ieee()
     def evaluate(params):
         tot = torch.zeros((), dtype=torch.float32, device=device)
         for i in range(nb):

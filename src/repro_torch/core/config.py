@@ -3,8 +3,12 @@ names and defaults.
 
 Fields whose subsystem this port does not have yet raise
 ``NotImplementedError`` when set, rather than being ignored:
-observability, checkpoint-resume, the batched engine, client sharding
-and the eval cache.  ``scenario`` resolves through ``repro_torch.sim``.
+observability, checkpoint-resume and client sharding (ROADMAP.md,
+queue 1 items 7, 8 and 10).  ``engine`` selects the event runtime's
+engine: "sequential" (one client per event) or "batched" (windows of
+``max_batch`` clients as one batched update, a FedBuff buffer of
+``buffer_size`` uploads, ``eval_cache``).  ``scenario`` resolves through
+``repro_torch.sim``.
 ``value_backend`` here is a *stacked* function, ``(stacked_a,
 stacked_b) -> (W,)``; None selects the grad_diff_norm kernel's wrapper.  The device is not a field: the entry points take
 ``device=`` (default ``"cuda"``).
@@ -21,10 +25,10 @@ from repro_torch.core.client import LocalSpec
 
 ENGINES = ("sequential", "batched")
 
-# field -> value meaning "off"; any other value is a subsystem not ported yet
-_NOT_PORTED = {"obs": None, "checkpoint_path": None,
-               "resume": False, "engine": "sequential", "shard_clients": False,
-               "eval_cache": 0}
+# field -> (value meaning "off", ROADMAP.md queue 1 item that ports it);
+# any other value is a subsystem not ported yet
+_NOT_PORTED = {"obs": (None, 8), "checkpoint_path": (None, 7), "resume": (False, 7),
+               "shard_clients": (False, 10)}
 
 
 @dataclass
@@ -72,11 +76,11 @@ class FLRunConfig:
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine: {self.engine!r}; known engines: "
                              f"{', '.join(ENGINES)}")
-        for name, off in _NOT_PORTED.items():
+        for name, (off, item) in _NOT_PORTED.items():
             if getattr(self, name) != off:
                 raise NotImplementedError(
                     f"FLRunConfig.{name}={getattr(self, name)!r} is not ported to "
-                    "repro_torch yet (ROADMAP.md, queue 1)")
+                    f"repro_torch yet (ROADMAP.md, queue 1 item {item})")
         if self.scenario is not None:
             # lazy import: repro_torch.sim is only pulled in when a
             # scenario is configured
@@ -86,7 +90,8 @@ class FLRunConfig:
             raise ValueError(f"eval_subsample must be >= 0 (got {self.eval_subsample})")
         if self.checkpoint_every != 0:
             raise NotImplementedError("checkpoint_every needs checkpoint-resume, "
-                                      "not ported to repro_torch yet (ROADMAP.md, queue 1)")
+                                      "not ported to repro_torch yet (ROADMAP.md, queue 1 "
+                                      "item 7)")
 
     def make_algorithm(self):
         """``(Algorithm spec, UploadPolicy, Aggregator)`` for one run."""

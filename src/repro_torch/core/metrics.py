@@ -1,8 +1,8 @@
 """FL experiment metrics: communication accounting (the paper's headline
 numbers), CCR (Eq. 4) as a count ratio and a byte-accurate ratio,
 accuracy tracking, time-to-accuracy.  Port of ``repro.core.metrics``
-(framework-free; the reference's ``to_summary`` waits for the
-benchmarks)."""
+(framework-free; ``to_summary`` without the reference's obs percentiles
+and trace path, which come with observability)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -141,6 +141,32 @@ class RunResult:
     def byte_ccr(self) -> float:
         """Within-run byte compression of the upload path (codec effect)."""
         return self.comm.byte_ccr
+
+    def to_summary(self) -> dict:
+        """The run as one JSON-ready dict (the Table III harness's per-run
+        numbers, ``repro_torch.bench.fl_common.table3_row``)."""
+        c = self.comm
+        return {
+            "algorithm": self.algorithm,
+            "target_acc": self.target_acc,
+            "best_acc": round(self.best_acc, 4),
+            "records": len(self.records),
+            "uploads": c.model_uploads,
+            "scalar_reports": c.scalar_reports,
+            "broadcasts": c.broadcasts,
+            "uplink_mb": round(c.uplink_bytes / 1e6, 3),
+            "downlink_mb": round(c.downlink_bytes / 1e6, 3),
+            "total_wire_mb": round(c.total_wire_bytes / 1e6, 3),
+            "byte_ccr": round(self.byte_ccr, 4),
+            "uploads_to_target": self.uploads_to_target,
+            "rounds_to_target": self.rounds_to_target,
+            "time_to_target": self.time_to_target,
+            "sim_time": self.sim_time,
+            "mean_idle": (None if self.idle_fraction is None
+                          else round(self.idle_fraction, 4)),
+            "failed_rounds": (None if self.client_failed_rounds is None
+                              else int(sum(self.client_failed_rounds))),
+        }
 
     def finalize_target(self):
         for r in self.records:

@@ -1,8 +1,10 @@
-"""Plumbing shared by the runtimes (rounds / events / sync): codec wiring
-with per-client error feedback, deterministic per-transfer encode seeds,
-participation sampling, the scenario models and the stacked per-client
-inputs.  Port of ``repro.core.runtimes.common`` without its obs hooks and
-the batched engine's helpers (``_engine_jits``, ``_flush_reconstructions``).
+"""Plumbing shared by the runtimes (rounds / events / sync / batched):
+codec wiring with per-client error feedback, deterministic per-transfer
+encode seeds, participation sampling, the scenario models, the stacked
+per-client inputs and the batched engine's helper set (the counterpart
+of the reference's ``_engine_jits``, as plain functions on tensors).
+Port of ``repro.core.runtimes.common`` without its obs hooks and client
+sharding.
 
 Nothing in here knows which algorithm is running; runtimes consume the
 ``UploadPolicy`` / ``Aggregator`` protocol for every algorithm-dependent
@@ -13,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.common.pytree import (stacked_index, tree_leaves, tree_map, tree_scatter,
-                                       tree_stack)
+from repro_torch.common.pytree import (stacked_index, tree_gather, tree_leaves, tree_map,
+                                       tree_scatter, tree_scatter_, tree_stack)
 from repro_torch.compress import ErrorFeedback, compress_update, get_codec
 from repro_torch.core import value as value_lib
 from repro_torch.kernels.grad_diff_norm.ops import tree_grad_diff_sq_norm
@@ -145,6 +147,23 @@ def _round_broadcast(run_cfg, bcodec, comm, global_params, n, t, down_acc=None):
     return out
 
 
+def _flush_reconstructions(aggregator, global_params, recons, stales):
+    """Mix a buffer of reconstruction trees into the global model: the
+    FedBuff-K commit for any engine holding materialised
+    reconstructions (in the reference, the serve loop's; its port is
+    ROADMAP queue 1 item 9).  A singleton buffer is the sequential per-arrival
+    mix bit for bit (``buffered_mix`` K=1 path); larger buffers take the
+    aggregator's ``flush_mix`` so a plugin aggregator stays in charge of
+    its own mixing."""
+    from repro_torch.core.aggregation import buffered_coefs, buffered_mix
+    if len(recons) == 1:
+        return buffered_mix(global_params, recons, stales, aggregator.mix_rate,
+                            mix=aggregator.mix)
+    src = tree_stack(list(recons))
+    coef, rho_sbar = buffered_coefs(stales, aggregator.mix_rate)
+    return aggregator.flush_mix(global_params, src, np.arange(len(recons)), coef, rho_sbar)
+
+
 def _attach_sim_result(res, sched):
     """Copy the scheduler's per-client simulation ledger onto a
     ``RunResult`` (event runtime)."""
@@ -165,8 +184,9 @@ def _round_helpers(run_cfg, client_eval_fn):
 
 
 def _event_helpers(run_cfg, client_eval_fn, sq_diff):
-    """Stacked per-client inputs over a stack of W rows (the event runtime
-    passes size-1 stacks): per-client eval, Eq. 1 values with ``sq_diff``
+    """Stacked per-client inputs over a stack of W rows (the sequential
+    loop passes size-1 stacks, the batched engine a window's W rows, the
+    round runtimes all N): per-client eval, Eq. 1 values with ``sq_diff``
     (one call for all W rows: the grad_diff_norm kernel's wrapper unless
     the config overrides it) and squared gradient norms.  Each is
     computed only when the policy (or the round record) reads it."""
@@ -181,3 +201,51 @@ def _event_helpers(run_cfg, client_eval_fn, sq_diff):
         return value_lib.communication_values_stacked(gp, gc, accs, N, sq_diff_fn=sq_diff)
 
     return batch_eval, values_fn, value_lib.stacked_sq_norms
+
+
+# ------------------------------------------- batched-engine helper set ---
+# The reference compiles these as one donated jit each; here they are
+# plain functions whose writes into the (N, ...) stacked client state go
+# in place (``index_copy_``), so a window never copies the full stacks.
+# Its gather and stack are ``tree_gather`` and ``tree_stack``, and its
+# folded flush is ``aggregation.flush_mix``.  ``versions`` is the list of
+# distinct global models the window's clients downloaded, and ``rel`` (a
+# LongTensor) picks one per row; under a folded flush the new global is
+# appended to it, for the clients that downloaded after the flush.
+
+def _downloads(versions, rel):
+    """(W, ...) stacked downloads: row j is ``versions[rel[j]]``."""
+    return tree_gather(tree_stack(versions), rel)
+
+
+def commit_win(cp, pg, idx, versions, rel, eff):
+    """Sub-full-window commit: the window's downloads and effective
+    gradients written into rows ``idx`` of the client stacks, in place."""
+    tree_scatter_(cp, idx, _downloads(versions, rel))
+    tree_scatter_(pg, idx, eff)
+    return cp, pg
+
+
+def commit_win_flush(gp, cp, pg, idx, versions, rel, eff, src, rows, coef, rho_sbar):
+    """``commit_win`` with the window's final buffer flush folded in: the
+    new global is produced and handed to the clients that downloaded it
+    (``rel == len(versions)``)."""
+    from repro_torch.core.aggregation import flush_mix
+    gnew = flush_mix(gp, src, rows, coef, rho_sbar)
+    cp, pg = commit_win(cp, pg, idx, versions + [gnew], rel, eff)
+    return gnew, cp, pg
+
+
+def commit_full(versions, rel, eff):
+    """Full-window commit (w == N): every client downloaded, so the new
+    client stack is a per-client gather of download versions and
+    prev_grads IS the window's eff stack (client order)."""
+    return _downloads(versions, rel), eff
+
+
+def commit_full_flush(gp, versions, rel, eff, src, rows, coef, rho_sbar):
+    """``commit_full`` with the window's final buffer flush folded in."""
+    from repro_torch.core.aggregation import flush_mix
+    gnew = flush_mix(gp, src, rows, coef, rho_sbar)
+    cp, pg = commit_full(versions + [gnew], rel, eff)
+    return gnew, cp, pg

@@ -1,11 +1,11 @@
 """Event-driven runtime: wall-clock asynchronous simulation on the
 deterministic event scheduler.  Port of ``repro.core.runtimes.events``
 without its checkpoint and obs branches (``FLRunConfig`` rejects those
-settings, and the batched engine's).  ``run_event_driven`` is the entry
-point; it dispatches on the algorithm's ``event_mode``: sync-barrier
-baselines like FedAvg run the round-barrier runtime
-(``repro_torch.core.runtimes.sync``), every other algorithm the
-sequential loop here.
+settings).  ``run_event_driven`` is the entry point; it dispatches on
+the algorithm's ``event_mode``: sync-barrier baselines like FedAvg run
+the round-barrier runtime (``repro_torch.core.runtimes.sync``); every
+other algorithm runs ``run_cfg.engine``: the sequential loop here, or
+the batched engine (``repro_torch.core.runtimes.batched``).
 
 The sequential loop processes one client completion at a time: the
 ``UploadPolicy`` makes the scalar ship/skip decision from whatever
@@ -38,7 +38,8 @@ def run_event_driven(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
     (total events = rounds * N for comparability with round mode).  The
     arguments are ``run_round_based``'s, plus ``speed``, the compute
     model (default: the scenario's fleet, else the paper's testbed); the
-    local update passes the event index to ``perm_fn`` as its step."""
+    local update passes the event index (the batched engine: the
+    window's first event index) to ``perm_fn`` as its step."""
     dev = resolve_device(device)
     alg, policy, aggregator = run_cfg.make_algorithm()
     N = run_cfg.num_clients
@@ -63,6 +64,11 @@ def run_event_driven(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
         return _run_sync_barrier(run_cfg, policy, aggregator, global_params, gen,
                                  local_update, data, fed_data.counts, evaluate_fn,
                                  client_eval_fn, speed, net, avail, verbose)
+    if run_cfg.engine == "batched":
+        from repro_torch.core.runtimes.batched import _run_event_batched
+        return _run_event_batched(run_cfg, policy, aggregator, global_params, gen,
+                                  local_update, loss_fn, perm_fn, data, evaluate_fn,
+                                  client_eval_fn, speed, net, avail, verbose)
     comm = CommStats(model_bytes=tree_bytes(global_params))
     codec, bcodec, ef = _make_codecs(run_cfg)
 

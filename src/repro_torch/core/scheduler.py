@@ -1,8 +1,8 @@
 """Deterministic event-driven scheduler for asynchronous FL simulation.
-A copy of ``repro.core.scheduler`` (numpy only) without its obs hook and
+A copy of ``repro.core.scheduler`` (numpy only) without its obs hook,
 the batched engine's window API (``pop_window``, ``account_bytes``,
-``reactive``), which come with that engine; the parity tests
-(tests/test_torch_sim.py) keep it bit-identical to the original.
+``reactive``) included; the parity tests (tests/test_torch_sim.py,
+tests/test_torch_batched.py) keep it bit-identical to the original.
 
 The paper's asynchrony (Raspberry-Pi stragglers, network jitter) is
 modelled as deterministic service-time distributions and a
@@ -167,13 +167,46 @@ class EventScheduler:
         self._seq += 1
         heapq.heappush(self.heap, Event(t, self._seq, client))
 
+    def account_bytes(self, client: int, upload_bytes: int, download_bytes: int):
+        """Record a round's wire bytes without scheduling, for engines
+        that reschedule before payload sizes are known (the batched
+        engine's pipelined default path, where the network model is
+        inactive and bytes carry no delay)."""
+        self.client_up_bytes[client] += upload_bytes
+        self.client_down_bytes[client] += download_bytes
+
     def pop(self) -> Tuple[float, int]:
         ev = heapq.heappop(self.heap)
         self.now = ev.time
         return ev.time, ev.client
 
+    def pop_window(self, max_batch: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Pop the up-to-``max_batch`` earliest completions: the window the
+        batched engine executes as ONE batched update before its next mix
+        point.  Clients are returned in arrival order (each appears at most
+        once per window: a client's next completion is only scheduled after
+        its current one is processed).  Returns ``(times, clients)`` with
+        per-event completion times (``times[-1]`` advances ``now``);
+        ``pop_window(1)`` is exactly ``pop()``."""
+        k = min(max_batch, len(self.heap))
+        times = np.empty(k, np.float64)
+        clients = np.empty(k, np.int64)
+        for j in range(k):
+            ev = heapq.heappop(self.heap)
+            self.now = times[j] = ev.time
+            clients[j] = ev.client
+        return times, clients
+
     def __len__(self):
         return len(self.heap)
+
+    @property
+    def reactive(self) -> bool:
+        """True when scheduling consumes per-event byte counts or
+        availability draws: engines must then reschedule *after* the
+        window's upload decisions (the batched engine defers its
+        pipeline's reschedule+pop to the decision loop's end)."""
+        return self.network is not None or self.availability is not None
 
     def idle_fraction(self) -> np.ndarray:
         """Per-client fraction of wall-clock spent idle (waiting on server

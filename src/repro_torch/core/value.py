@@ -10,6 +10,7 @@ which reduces all W clients of a call in one launch.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.common import fp32
@@ -48,6 +49,16 @@ def communication_values_stacked(grads_prev, grads_cur, accs, n_clients, *,
     ``sq_diff_fn(stacked_a, stacked_b) -> (W,)`` gives the norms."""
     diff_sq = sq_diff_fn(grads_prev, grads_cur)
     return (diff_sq * amplifier(n_clients, accs, diff_sq.device)).float()
+
+
+def communication_values_host(diff_sq, accs, n_clients) -> np.ndarray:
+    """Eq. 1 from norms and accuracies already read back to the host:
+    the same fp32 product as ``communication_values_stacked`` (one IEEE
+    single multiply by the same ``powf`` amplifier), so the batched
+    engine reads one copy a window and never waits for the card before
+    its pipelined host work."""
+    base = float(value_base(n_clients))
+    return np.asarray(diff_sq, np.float32) * fp32.powf(base, accs)
 
 
 def vafl_threshold(values):

@@ -3,25 +3,35 @@ Port of ``repro.models.cnn``.
 
 Parameters keep the reference's tree and layouts: convolution weights
 are HWIO and images NHWC at the public functions, so a reference tree
-carries over by plain copy (``repro_torch.weights``).  Inside the
-forward the activations run in NCHW for ``F.conv2d``.
+carries over by plain copy (``repro_torch.weights``).
 
-On CUDA the convolutions run in full fp32, as the reference's do:
-cuDNN's default for fp32 is TF32 (a 10-bit mantissa), which moved a
-small federation's final weights by up to 2.4e-3 on an H100.  The
-setting is scoped to the port's own convolutions, forward and backward
-(``_FP32Conv2d``), so a caller's process-wide cuDNN flags are left as
-they are.
+Activations run NCHW.  On CPU tensors a convolution is ``F.conv2d``.
+On CUDA tensors it is an im2col GEMM (``_conv_gemm``).  The batched
+local update runs a window of W clients through ``torch.func.vmap``,
+which makes each convolution a grouped one, and on an H100 cuDNN's
+deterministic algorithms ran a grouped convolution one group at a time:
+a window of 7 clients launched 27,254 CUDA kernels, against 8,636 in
+the GEMM form (``chip_smoke.py``); its nondeterministic algorithms had
+made two runs from one seed differ.  In the GEMM form the clients'
+weights are a batch dimension of one batched matmul, and the windows
+are gathered by a depthwise convolution with one-hot filters, which
+vmap runs as one ungrouped call for all W clients; nothing forward or
+backward sums with atomics, so card runs reproduce bit for bit.  The
+gather and the GEMM run inside ``common.fp32.ieee()``: IEEE fp32, no
+TF32, deterministic cuDNN should it ever take the gather, whatever the
+process-wide flags say; the local update (``core.client``) runs its
+backward in the same scope.
 """
 from __future__ import annotations
 
-from contextlib import contextmanager
+import functools
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import fp32
 from repro_torch.models.factory import ParamFactory
 
 
@@ -69,53 +79,55 @@ def _same_pad(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
-@contextmanager
-def _cudnn_fp32():
-    """cuDNN in full fp32 and deterministic for the block's duration: no
-    TF32, no benchmarked or nondeterministic algorithms (with them, two
-    card runs of Algorithm 1 from one seed ended at different weights
-    and upload bytes).  Its ``enabled`` flag is kept, and the process-wide
-    flags are restored on exit."""
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
-                     allow_tf32=False):
-        yield
+@functools.lru_cache(maxsize=None)
+def _window_filters(cin: int, k: int, device) -> torch.Tensor:
+    """(cin * k * k, 1, k, k) one-hot filters: depthwise, output channel
+    c * k * k + i * k + j of input channel c copies window offset (i, j)."""
+    return torch.eye(k * k, device=device).reshape(k * k, 1, k, k).repeat(cin, 1, 1, 1)
 
 
-class _FP32Conv2d(torch.autograd.Function):
-    """``F.conv2d(x, w, b, stride=stride)`` whose forward and backward both
-    run inside ``_cudnn_fp32``: autograd runs the backward after the
-    forward's scope has closed, so a context around the forward alone
-    would leave the gradients in TF32.  The backward's ``torch.nn.grad``
-    calls take the forward's own keyword arguments."""
+def _conv_gemm(p, x, stride=1):
+    """x NCHW, p["w"] HWIO -> NCHW as im2col and a batched GEMM: the card's
+    convolution (module docstring).  After the "SAME" padding, the
+    one-hot depthwise convolution lays each output position's window out
+    as (cin, kh, kw) channels, exactly (one product by 1 a value), the
+    weight reshaped to (cout, cin * kh * kw) multiplies them, and the bias
+    is added after, as the reference adds it.  The weight is expanded
+    over the images, so its gradient is one GEMM an image and a sum, not
+    one GEMM with a reduction as long as the batch.  Both run in IEEE
+    fp32 (``fp32.ieee()``), so the gather stays exact."""
+    k, _, cin, cout = p["w"].shape
+    ph = _same_pad(x.shape[2], k, stride)
+    pw = _same_pad(x.shape[3], k, stride)
+    if ph[0] != ph[1] or pw[0] != pw[1]:
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        ph = pw = (0, 0)
+    with fp32.ieee():
+        cols = F.conv2d(x, _window_filters(cin, k, x.device), stride=stride,
+                        padding=(ph[0], pw[0]), groups=cin)
+        n, _, ho, wo = cols.shape
+        wm = p["w"].permute(3, 2, 0, 1).reshape(cout, cin * k * k).expand(n, cout, cin * k * k)
+        out = torch.bmm(wm, cols.reshape(n, cin * k * k, ho * wo)) + p["b"][:, None]
+    return out.reshape(n, cout, ho, wo)
 
-    @staticmethod
-    def forward(ctx, x, w, b, stride):
-        ctx.save_for_backward(x, w)
-        ctx.conv = {"stride": stride}
-        with _cudnn_fp32():
-            return F.conv2d(x, w, b, **ctx.conv)
 
-    @staticmethod
-    def backward(ctx, gy):
-        x, w = ctx.saved_tensors
-        need_x, need_w, need_b, _ = ctx.needs_input_grad
-        with _cudnn_fp32():
-            gx = torch.nn.grad.conv2d_input(x.shape, w, gy, **ctx.conv) if need_x else None
-            gw = torch.nn.grad.conv2d_weight(x, w.shape, gy, **ctx.conv) if need_w else None
-        return gx, gw, gy.sum((0, 2, 3)) if need_b else None, None
+def _gemm_route(x) -> bool:
+    """Whether a convolution takes the card's GEMM route: on CUDA tensors
+    (the tests also take it on the CPU, to hold it against ``F.conv2d``
+    and the reference)."""
+    return x.is_cuda
 
 
 def _conv(p, x, stride=1):
-    """x NCHW, p["w"] HWIO -> NCHW."""
+    """x NCHW, p["w"] HWIO -> NCHW: ``F.conv2d`` after the "SAME" pad, or
+    on the card ``_conv_gemm``."""
+    if _gemm_route(x):
+        return _conv_gemm(p, x, stride)
     k = p["w"].shape[0]
     ph = _same_pad(x.shape[2], k, stride)
     pw = _same_pad(x.shape[3], k, stride)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    w = p["w"].permute(3, 2, 0, 1)
-    if x.is_cuda:
-        return _FP32Conv2d.apply(x, w, p["b"], stride)
-    return F.conv2d(x, w, p["b"], stride=stride)
+    return F.conv2d(x, p["w"].permute(3, 2, 0, 1), p["b"], stride=stride)
 
 
 def cnn_init(cfg: CNNConfig, generator: torch.Generator):

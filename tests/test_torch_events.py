@@ -325,7 +325,7 @@ def _fed(data, **kw):
                       local=tclient.LocalSpec(**SPEC), **kw)
 
 
-@pytest.mark.parametrize("field,value", [("engine", "batched"), ("checkpoint_path", "x.ckpt"),
+@pytest.mark.parametrize("field,value", [("shard_clients", True), ("checkpoint_path", "x.ckpt"),
                                          ("obs", True)])
 def test_event_mode_rejects_unported_settings(data, field, value):
     fed = _fed(data, device="cpu")

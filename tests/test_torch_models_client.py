@@ -4,7 +4,6 @@ its batch permutations injected."""
 import pytest
 
 torch = pytest.importorskip("torch")
-F = torch.nn.functional
 torch.set_num_threads(1)   # the suite runs a test process per core
 
 import jax  # noqa: E402
@@ -149,21 +148,101 @@ def test_evaluator_matches_reference(n, batch, subsample):
 
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("need_x", [False, True])
-def test_fp32_conv_function_matches_conv2d(stride, need_x):
-    """The CNN's card-side convolution (cuDNN without TF32, forward and
-    backward) computes F.conv2d and its gradients; on the CPU the flag is
-    inert, so values and gradients equal autograd's through F.conv2d."""
+def test_fp32_conv_function_matches_conv2d(stride, need_x, monkeypatch):
+    """The CNN's card-side convolution (the im2col GEMM, ``_conv_gemm``)
+    computes the CPU side's padded F.conv2d and its gradients, alone and
+    under ``torch.func.vmap`` over three clients' weights, as the batched
+    local update runs it.  10 x 10 inputs give "SAME" padding (1, 1) at
+    stride 1 and the asymmetric (0, 1) at stride 2; the 1 x 1 projection
+    takes none."""
     rs = np.random.RandomState(4)
-    x0, w0, b0 = (torch.from_numpy(rs.randn(*s).astype(np.float32))
-                  for s in ((3, 4, 9, 9), (8, 4, 3, 3), (8,)))
-    gy = torch.from_numpy(rs.randn(3, 8, 7 if stride == 1 else 4, 7 if stride == 1 else 4)
-                          .astype(np.float32))
-    outs = []
-    for conv in (tcnn._FP32Conv2d.apply, lambda x, w, b, s: F.conv2d(x, w, b, stride=s)):
-        x = x0.clone().requires_grad_(need_x)
-        w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
-        y = conv(x, w, b, stride)
-        grads = torch.autograd.grad(y, [t for t in (x, w, b) if t.requires_grad], gy)
-        outs.append([y.detach()] + list(grads))
-    for got, want in zip(*outs):
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for k in (3, 1):
+        x0, w0, b0 = (torch.from_numpy(rs.randn(*s).astype(np.float32))
+                      for s in ((3, 3, 4, 10, 10), (3, k, k, 4, 8), (3, 8)))
+        side = 10 if stride == 1 else 5
+        gy = torch.from_numpy(rs.randn(3, 3, 8, side, side).astype(np.float32))
+        outs = []
+        for route, batched in ((True, False), (True, True), (False, False)):
+            monkeypatch.setattr(tcnn, "_gemm_route", lambda x, route=route: route)
+            x = x0.clone().requires_grad_(need_x)
+            w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+            if batched:
+                y = torch.func.vmap(lambda w_, b_, x_: tcnn._conv({"w": w_, "b": b_}, x_,
+                                                                   stride))(w, b, x)
+            else:
+                y = torch.stack([tcnn._conv({"w": w[i], "b": b[i]}, x[i], stride)
+                                 for i in range(3)])
+            grads = torch.autograd.grad(y, [t for t in (x, w, b) if t.requires_grad], gy)
+            outs.append([y.detach()] + list(grads))
+        for got_a, got_b, want in zip(*outs):
+            torch.testing.assert_close(got_a, want, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got_b, want, rtol=1e-5, atol=1e-5)
+
+
+def test_card_route_forward_and_update_match_reference(monkeypatch):
+    """The card's whole GEMM route, taken on the CPU: the full-width
+    forward against the reference (the forward test's 1e-5), and a
+    batched local update of 3 clients against the CPU route's (the
+    round-runtime parity test's atol 1e-4: one SGD step of the full CNN
+    moves some weights by 1.4e-5 between the two summation orders)."""
+    jcfg, tcfg = jcnn.CNNConfig(), tcnn.CNNConfig()
+    params = to_numpy_params(tcnn.cnn_init(tcfg, torch.Generator().manual_seed(3)))
+    x = images(4, 2)
+    want = np.asarray(jcnn.cnn_forward(jcfg, jax.tree.map(jnp.asarray, params), jnp.asarray(x)))
+    rs = np.random.RandomState(6)
+    data = {"images": torch.from_numpy(images(3 * 40, 7).reshape(3, 40, 28, 28)),
+            "labels": torch.from_numpy(rs.randint(0, 10, (3, 40))).long(),
+            "mask": torch.ones(3, 40)}
+    stacked = from_jax_params(jax.tree.map(lambda a: np.stack([a] * 3), params))
+    upd = tclient.make_local_update(tclient.make_weighted_classifier_loss(tcnn.cnn_forward, tcfg),
+                                    tclient.LocalSpec(16, 1, 1, 0.1))
+    plain = upd(stacked, data, torch.Generator().manual_seed(1), 0)[0]
+    monkeypatch.setattr(tcnn, "_gemm_route", lambda x: True)
+    got = tcnn.cnn_forward(tcfg, from_jax_params(params), torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    card = upd(stacked, data, torch.Generator().manual_seed(1), 0)[0]
+    for a, b in zip(tree_leaves(plain), tree_leaves(card)):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+def test_model_runs_in_ieee_fp32_whatever_the_flags(monkeypatch):
+    """Under process-wide TF32 flags (``set_float32_matmul_precision
+    ("high")``, cuDNN's ``allow_tf32``), the card's GEMM route (taken on
+    the CPU here) runs its forward, the local update its backward and the
+    evaluator its forward in IEEE fp32 with deterministic cuDNN, and the
+    caller's flags come back afterwards; the update's values do not move."""
+    _, tcfg, _, _, tfwd = MODELS["cnn"]
+    cudnn = torch.backends.cudnn
+    stacked = from_jax_params(jax.tree.map(lambda a: np.stack([a] * 2), ref_params("cnn")))
+    data = {"images": torch.from_numpy(images(2 * 16, 8).reshape(2, 16, 28, 28)),
+            "labels": torch.arange(32).remainder(10).reshape(2, 16),
+            "mask": torch.ones(2, 16)}
+    upd = tclient.make_local_update(tclient.make_weighted_classifier_loss(tfwd, tcfg),
+                                    tclient.LocalSpec(8, 1, 1, 0.1))
+    evaluate = tclient.make_evaluator(tfwd, tcfg, images(20, 9), np.arange(20) % 10, batch=10)
+    monkeypatch.setattr(tcnn, "_gemm_route", lambda x: True)
+    want = upd(stacked, data, torch.Generator().manual_seed(1), 0)[0]
+    seen = []
+
+    def flags():
+        return (torch.get_float32_matmul_precision(), cudnn.allow_tf32, cudnn.deterministic)
+
+    def spy(orig, where):
+        def call(*args, **kwargs):
+            seen.append((where, flags()))
+            return orig(*args, **kwargs)
+        return call
+    monkeypatch.setattr(torch, "bmm", spy(torch.bmm, "forward"))
+    monkeypatch.setattr(torch.autograd, "grad", spy(torch.autograd.grad, "backward"))
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        cudnn.allow_tf32 = True
+        got = upd(stacked, data, torch.Generator().manual_seed(1), 0)[0]
+        evaluate(from_jax_params(ref_params("cnn")))
+        assert flags() == ("high", True, False)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert {w for w, _ in seen} == {"forward", "backward"}
+    assert all(f == ("highest", False, True) for _, f in seen), set(seen)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(want), tree_leaves(got)))

@@ -63,6 +63,11 @@ def test_port_imports_with_jax_blocked():
         "assert get_scenario('mobile_fleet').build(3, 0)[1].active\n"
         "from repro_torch.algorithms import get_algorithm\n"
         "assert get_algorithm('vafl').name == 'vafl'\n"
+        "assert get_algorithm('fedasync').name == 'fedasync'\n"
+        "import repro_torch.core.runtimes.batched, repro_torch.compress.quantize\n"
+        "import repro_torch.bench.fl_common, repro_torch.bench.table3_ccr\n"
+        "from repro_torch.compress import get_codec\n"
+        "assert get_codec('int4').name == 'int4'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -218,7 +218,7 @@ def test_federation_cnn_topk_on_cpu(data):
 
 @pytest.mark.parametrize("field,value", [
     ("obs", True), ("checkpoint_path", "x.ckpt"),
-    ("resume", True), ("engine", "batched"), ("shard_clients", True), ("eval_cache", 2),
+    ("resume", True), ("shard_clients", True),
     ("checkpoint_every", 5),
 ])
 def test_config_rejects_unported_fields(field, value):
@@ -226,10 +226,17 @@ def test_config_rejects_unported_fields(field, value):
         TConfig(**{field: value})
 
 
+@pytest.mark.parametrize("field,value", [("engine", "batched"), ("eval_cache", 2)])
+def test_config_accepts_the_batched_engine_fields(field, value):
+    assert getattr(TConfig(**{field: value}), field) == value
+
+
 def test_event_mode_and_unknown_names_raise(data):
     fed = _fed(data, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fed.run(rounds=1, mode="event", engine="batched")
+        fed.run(rounds=1, mode="event", engine="batched", shard_clients=True)
+    with pytest.raises(ValueError, match="unknown engine"):
+        fed.run(rounds=1, mode="event", engine="warp-drive")
     with pytest.raises(ValueError, match="unknown mode"):
         fed.run(rounds=1, mode="window")
     with pytest.raises(ValueError, match="registered algorithms"):
