@@ -25,7 +25,27 @@ points.
    bit against the sequential vafl run; then N = 256 clients of the
    same CNN (afl, buffer 16): the batched engine over 512 events
    against the sequential loop's first 32; ``[batched]`` lines.
-4. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
+4. ``[round-scenario]``: vafl in round mode under ``scenario=
+   "flaky_edge"`` on the card and on the CPU path, from one initial model
+   and one set of permutations: the same record times, ``selected``,
+   ``client_failed_rounds``, byte ledgers and clock, bit for bit.
+5. ``[checkpoint]``: the round runtime (vafl under flaky_edge), fedavg's
+   barrier, the sequential loop (vafl) and the batched engine (vafl in
+   full windows; afl with a FedBuff buffer of 4 crossing the checkpoint)
+   on the same federation, each run whole, checkpointed
+   (``checkpoint_path=``, ``checkpoint_every=``) and resumed
+   (``resume=True``): the resumed run bit-equal to the whole one, and
+   the kernels launched over the resumed part as often as the whole run
+   launched them from the checkpoint on; an extending resume (2 rounds
+   to 3); a child process (``spawn``) killed with SIGKILL after its
+   first checkpoint, resumed here; each bundle's bytes and save and load
+   milliseconds, and the N = 256 federation's.
+6. ``[obs]``: the same runs with ``obs=True``: bit-equal to obs off,
+   their traces reconciled with CommStats; a profiled batched window of
+   7 with the same CUDA kernels and synchronising runtime calls with obs
+   on as off; a second identical run builds no kernel; ``torch_profile``
+   writes a trace; seconds a window with obs off and on, in turns.
+7. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
    rwkv6_3b at their full published configurations (random weights from
    a seed): 4 prompts of 2048 tokens, 32 greedy tokens each (kernels
    flash_attention and linear_scan in the prefill), then a prefill of
@@ -51,8 +71,9 @@ line of its output is one JSON object naming the device; the line
 before it is the card's name and power limit (``nvidia-smi``), and the
 line before that the per-kernel JSON (launches, max error, times,
 bound; ``event_*`` fields for the event path, ``batched_launches``
-for the batched engine).  It imports neither JAX
-nor the JAX package.
+for the batched engine, ``round_scenario_launches``,
+``checkpoint_launches`` and ``obs_launches`` for this slice's three
+paths).  It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -680,20 +701,24 @@ def phase_serve(arch: str, kernel: str, check_dtype: str) -> dict:
     return dict(stats, launches=launches[kernel], peak_gb=peak)
 
 
-def algo1_federation():
+def algo1_federation(device: str = "cuda", init=None):
     """The main path's federation: the CNN, 7 clients of 1,000
     synthetic-MNIST samples on the paper's non-IID partition,
-    topk0.1_int8, vafl, on the card."""
+    topk0.1_int8, vafl, on the card (or on ``device``).  ``init`` (a
+    parameter tree) replaces the initial model drawn from the run's
+    generator, whose draws differ between the card and the CPU."""
     from repro_torch.core.client import LocalSpec
     from repro_torch.core.federation import Federation
     from repro_torch.data.partition import paper_noniid_partition
     from repro_torch.data.synthetic import synthetic_mnist
+    from repro_torch.models.cnn import CNNConfig, cnn_forward
     xtr, ytr, xte, yte = synthetic_mnist(7000, 2000, seed=0)
     data = paper_noniid_partition(xtr, ytr, 7, samples_per_client=1000, seed=0)
-    return Federation(model="cnn", data=data, test_data=(xte, yte), algorithm="vafl",
+    model = "cnn" if init is None else (cnn_forward, lambda cfg, gen: init, CNNConfig())
+    return Federation(model=model, data=data, test_data=(xte, yte), algorithm="vafl",
                       compressor="topk0.1_int8",
                       local=LocalSpec(batch_size=32, local_epochs=1, local_rounds=1, lr=0.1),
-                      device="cuda")
+                      device=device)
 
 
 def phase_main_path():
@@ -1114,6 +1139,431 @@ def phase_batched_path(seq_vafl):
             share, scale)
 
 
+# ------------------------------------------------------------------------
+# This slice: the round runtime's scenario clock, checkpoint-resume in all
+# four runtimes, and observability (repro_torch.checkpoint, repro_torch.obs).
+
+CKPT_RUNS = [   # (name, Federation.run overrides, checkpoint_every) on the main federation
+    ("rounds vafl@flaky_edge", dict(mode="round", algorithm="vafl", scenario="flaky_edge"), 2),
+    ("barrier fedavg", dict(mode="event", algorithm="fedavg"), 2),
+    ("sequential vafl", dict(mode="event", algorithm="vafl"), 8),
+    ("batched vafl", dict(mode="event", algorithm="vafl", engine="batched"), 14),
+    ("batched afl K=4", dict(mode="event", algorithm="afl", engine="batched", buffer_size=4), 14),
+]
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+OBS_LAPS = 4                     # (off, on, on, off) turns of the overhead lap
+PROFILE_PAD = 32                 # uncounted spin kernels opening a profiled region
+KILL_TIMEOUT_S = 300             # the killed child's first checkpoint must land by then
+
+
+def _everything(res):
+    """Every number a run leaves: records with their accuracies,
+    ``selected``, CommStats, byte ledgers, clock and idle fractions."""
+    return ([(r.round, r.time, r.global_acc, r.uploads_so_far, r.selected, r.values,
+              r.client_accs, r.boundaries_crossed) for r in res.records],
+            vars(res.comm), res.sim_time, res.idle_fraction, res.client_idle,
+            res.client_uplink_bytes, res.client_downlink_bytes, res.client_failed_rounds)
+
+
+class _Captured:
+    """The main federation with its evaluator wrapped so that a run leaves
+    its last evaluated global model; ``final(path)`` falls back to the
+    bundle's model when a resumed batched run reused the last accuracy
+    and evaluated nothing new."""
+
+    def __init__(self, fed):
+        self.fed, self.seen = fed, {}
+        ev = fed.evaluate_fn
+
+        def capture(p):
+            self.seen["params"] = p
+            return ev(p)
+        fed.evaluate_fn = capture
+
+    def run(self, **kw):
+        self.seen.clear()
+        return self.fed.run(**kw)
+
+    def final(self, path=None):
+        if "params" in self.seen:
+            leaves = self.seen["params"]
+        else:
+            import pickle
+            from repro_torch.checkpoint import store as ck
+            with open(path, "rb") as f:
+                leaves = ck.tree_to_device(pickle.load(f)["state"]["global_params"], "cpu")
+        from repro_torch.common.pytree import tree_leaves
+        return [x.detach().cpu().clone() for x in tree_leaves(leaves)]
+
+
+def _same_params(a, b) -> bool:
+    import torch
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_round_scenario():
+    """``[round-scenario]``: vafl in round mode under ``flaky_edge`` on the
+    card and on the CPU, from one initial model and one set of
+    permutations: the same record times, ``selected``,
+    ``client_failed_rounds``, byte ledgers and clock, bit for bit, and a
+    clock of its own (a round runtime that ignored ``scenario`` would
+    stamp records with the round index)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.grad_diff_norm import ops as gd_ops
+    from repro_torch.kernels.topk_quant import ops as tq_ops
+    from repro_torch.models.cnn import CNNConfig, cnn_init
+    init = cnn_init(CNNConfig(), torch.Generator().manual_seed(0))
+    perms = {}
+
+    def perm_fn(i, t, e, mm):
+        if (i, t) not in perms:
+            perms[(i, t)] = torch.from_numpy(np.random.RandomState(1000 * t + i).permutation(mm))
+        return perms[(i, t)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        fed = algo1_federation(device, init)
+        g0, t0 = gd_ops.launches, tq_ops.launches
+        h0 = time.perf_counter()
+        res = fed.run(rounds=3, mode="round", scenario="flaky_edge", perm_fn=perm_fn)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device] = (res, time.perf_counter() - h0, gd_ops.launches - g0,
+                       tq_ops.launches - t0)
+    (rg, sg, gg, tg), (rc, sc, gc, tc) = out["cuda"], out["cpu"]
+    times = [r.time for r in rg.records]
+    say(f"[round-scenario] vafl@flaky_edge, 3 rounds, card: record times {times}, selected "
+        f"{[r.selected for r in rg.records]}, client_failed_rounds {rg.client_failed_rounds}, "
+        f"uplink bytes {rg.client_uplink_bytes}, sim_time {rg.sim_time!r}, idle_fraction "
+        f"{rg.idle_fraction!r}; {sg:.3f} s card, {sc:.3f} s CPU; kernel launches grad_diff_norm "
+        f"{gg}, topk_quant {tg} (CPU path: {gc}, {tc})")
+    fields = {f: (getattr(rg, f), getattr(rc, f)) for f in (
+        "client_failed_rounds", "client_uplink_bytes", "client_downlink_bytes", "sim_time",
+        "idle_fraction", "client_idle")}
+    fields["comm"] = (vars(rg.comm), vars(rc.comm))
+    for what in ("time", "selected", "uploads_so_far", "values"):
+        fields[what] = ([getattr(r, what) for r in rg.records],
+                        [getattr(r, what) for r in rc.records])
+    differ = {f: v for f, v in fields.items() if v[0] != v[1] and f != "values"}
+    same = not differ
+    say(f"[round-scenario] card against the CPU path: record times, selected, "
+        f"client_failed_rounds, byte ledgers, clock {'bit-equal' if same else 'DIFFER'} "
+        f"(CPU times {[r.time for r in rc.records]}); Eq. 1 values card / CPU "
+        f"{fields['values'][0]} / {fields['values'][1]}"
+        + ("" if same else f"; differing (card, CPU): {differ}"))
+    if not same:
+        fail("the round runtime under flaky_edge differs between the card and the CPU path")
+    if times == [1.0, 2.0, 3.0] or not rg.sim_time:
+        fail(f"the round runtime ignored the scenario: record times {times}")
+    if gg != 3 or gc != 0 or tg != rg.comm.model_uploads or tc != 0:
+        fail(f"round-scenario launches grad_diff_norm {gg}/{gc}, topk_quant {tg}/{tc} for "
+             f"{rg.comm.model_uploads} uploads")
+    return gg, tg
+
+
+def _kill_child(root: str, path: str) -> None:
+    """The killed run of ``[checkpoint]``, in a process of its own
+    (``spawn``): the main federation's sequential vafl run, checkpointing
+    every 8 events into ``path``, until the parent kills it."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    fed = algo1_federation()
+    fed.run(rounds=3, mode="event", algorithm="vafl", checkpoint_path=path, checkpoint_every=8)
+
+
+def _sigkill_resume(path: str, ref, ref_params, cap) -> dict:
+    """Start ``_kill_child``, SIGKILL it once its first checkpoint file
+    exists, and resume from that file in this process."""
+    import multiprocessing
+    import os
+    import pickle
+    import signal
+    ctx = multiprocessing.get_context("spawn")
+    child = ctx.Process(target=_kill_child, args=(str(ROOT), path))
+    h0 = time.perf_counter()
+    child.start()
+    try:
+        while not os.path.exists(path):
+            if not child.is_alive():
+                fail(f"the checkpointing child exited ({child.exitcode}) before its first "
+                     f"checkpoint")
+            if time.perf_counter() - h0 > KILL_TIMEOUT_S:
+                fail(f"no checkpoint from the child within {KILL_TIMEOUT_S} s")
+            time.sleep(0.01)
+        os.kill(child.pid, signal.SIGKILL)
+    finally:
+        child.join(60)
+        if child.is_alive():
+            child.kill()
+            child.join()
+    if child.exitcode != -signal.SIGKILL:
+        fail(f"the child was not killed mid-run (exit code {child.exitcode})")
+    with open(path, "rb") as f:
+        at = pickle.load(f)["state"]["event"]
+    res = cap.run(rounds=3, mode="event", algorithm="vafl", checkpoint_path=path, resume=True)
+    same = _everything(res) == _everything(ref) and _same_params(cap.final(path), ref_params)
+    say(f"[checkpoint] SIGKILL: a spawned child ran sequential vafl with checkpoint_every=8, "
+        f"was killed {time.perf_counter() - h0:.2f} s after its start once its checkpoint at "
+        f"event {at} of 21 existed (exit code {child.exitcode}); resumed here from that file: "
+        f"{'bit-equal' if same else 'DIFFERS'} to the uninterrupted run")
+    if not same:
+        fail("the run resumed after SIGKILL differs from the uninterrupted run")
+    return {"killed_at_event": at}
+
+
+def _bundle_figures(trace, path, load_ms) -> str:
+    """The last bundle's bytes, its save time (the obs ``checkpoint``
+    span of the run that wrote it) and its load time."""
+    import os
+    from repro_torch.obs import read_jsonl
+    spans = [e["host_dur"] * 1e3 for e in read_jsonl(trace)[1] if e["name"] == "checkpoint"]
+    return (f"bundle {os.path.getsize(path)} bytes, save {spans[-1]:.2f} ms (the obs "
+            f"checkpoint span: device-to-host copies, pickle, fsync, rename), load "
+            f"{load_ms:.2f} ms (read, unpickle, fingerprint check)")
+
+
+def phase_checkpoint():
+    """``[checkpoint]``: each runtime on the main federation run once
+    whole, once checkpointed (obs on, for its save spans) and once
+    resumed from the last checkpoint; the resumed run must equal the
+    whole one bit for bit (records, ``selected``, CommStats, byte
+    ledgers, clock, final parameters), and launch grad_diff_norm and the
+    encode as often as the whole run did from the checkpoint on.  Then an
+    extending resume (2 rounds to 3), a resume after SIGKILL, and the
+    N = 256 federation's bundle.  Returns the whole runs for ``[obs]``."""
+    import pickle
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import store as ck
+    from repro_torch.kernels.grad_diff_norm import ops as gd_ops
+    from repro_torch.kernels.topk_quant import ops as tq_ops
+    from repro_torch.obs import ObsConfig
+
+    cap = _Captured(algo1_federation())
+    saves, loads = [], []
+    save0, load0 = ck.save_run_state, ck.load_run_state
+
+    def save(*a, **k):                  # the launch counts at each save
+        saves.append((gd_ops.launches, tq_ops.launches))
+        return save0(*a, **k)
+
+    def load(*a, **k):
+        h0 = time.perf_counter()
+        out = load0(*a, **k)
+        loads.append((time.perf_counter() - h0) * 1e3)
+        return out
+    ck.save_run_state, ck.load_run_state = save, load
+    whole = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+    try:
+        for name, kw, every in CKPT_RUNS:
+            path = f"{tmp.name}/{len(whole)}.ckpt"
+            trace = f"{tmp.name}/{len(whole)}.jsonl"
+            g0, t0 = gd_ops.launches, tq_ops.launches
+            h0 = time.perf_counter()
+            a = cap.run(rounds=3, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - h0
+            a_params = cap.final()
+            la = (gd_ops.launches - g0, tq_ops.launches - t0)
+            saves.clear()
+            g1, t1 = gd_ops.launches, tq_ops.launches
+            b = cap.run(rounds=3, checkpoint_path=path, checkpoint_every=every,
+                        obs=ObsConfig(trace_jsonl=trace), **kw)
+            lb = (gd_ops.launches - g1, tq_ops.launches - t1)
+            at_save = (saves[-1][0] - g1, saves[-1][1] - t1)
+            unperturbed = _everything(b) == _everything(a) and _same_params(cap.final(), a_params)
+            g2, t2 = gd_ops.launches, tq_ops.launches
+            c = cap.run(rounds=3, checkpoint_path=path, resume=True, **kw)
+            lc = (gd_ops.launches - g2, tq_ops.launches - t2)
+            resumed = _everything(c) == _everything(a) and _same_params(cap.final(path), a_params)
+            with open(path, "rb") as f:
+                st = pickle.load(f)["state"]
+            unit = "round" if "round" in st else "event"
+            extra = (f", buffer {len(st['buffer'])} uploads, next window "
+                     f"{None if st['nxt'] is None else st['nxt'][1].tolist()}"
+                     if "buffer" in st else "")
+            say(f"[checkpoint] {name}: checkpoint_every={every}, last checkpoint at {unit} "
+                f"{st[unit]}{extra}, EF residuals of {len(st['ef'])} clients; checkpointed run "
+                f"{'bit-equal' if unperturbed else 'DIFFERS'} to the whole run ({secs:.3f} s), "
+                f"resumed run {'bit-equal' if resumed else 'DIFFERS'}; launches grad_diff_norm, "
+                f"topk_quant: whole {la}, from the checkpoint on {(la[0] - at_save[0], la[1] - at_save[1])}, "
+                f"resumed {lc}; " + _bundle_figures(trace, path, loads[-1]))
+            if not (unperturbed and resumed):
+                fail(f"checkpoint {name}: a checkpointed or resumed run differs from the whole run")
+            if lb != la or lc != (la[0] - at_save[0], la[1] - at_save[1]):
+                fail(f"checkpoint {name}: launches whole {la}, checkpointed {lb}, resumed {lc}, "
+                     f"at the checkpoint {at_save}")
+            if sum(lc) == 0 or not 0 < st[unit] < (3 if unit == "round" else 21):
+                fail(f"checkpoint {name}: the resumed part is empty ({unit} {st[unit]}, "
+                     f"launches {lc})")
+            whole[name] = (a, a_params, secs)
+        # an extending resume: a 2-round checkpoint of the batched engine
+        # (whose writer never popped a next window) resumed to 3 rounds
+        name, kw, _ = CKPT_RUNS[3]
+        path = f"{tmp.name}/ext.ckpt"
+        cap.run(rounds=2, checkpoint_path=path, checkpoint_every=7, **kw)
+        c = cap.run(rounds=3, checkpoint_path=path, resume=True, **kw)
+        a, a_params, _ = whole[name]
+        same = _everything(c) == _everything(a) and _same_params(cap.final(path), a_params)
+        say(f"[checkpoint] extending resume: {name} checkpointed at the end of 2 rounds (event "
+            f"14, no next window popped), resumed to 3 rounds: "
+            f"{'bit-equal' if same else 'DIFFERS'} to the 3-round run")
+        if not same:
+            fail("an extending resume differs from the longer run")
+        seq, seq_params, _ = whole["sequential vafl"]
+        killed = _sigkill_resume(f"{tmp.name}/killed.ckpt", seq, seq_params, cap)
+        n256 = _scale_bundle(tmp.name, loads)
+    finally:
+        ck.save_run_state, ck.load_run_state = save0, load0
+        tmp.cleanup()
+    return whole, dict(killed, **n256)
+
+
+def _scale_bundle(tmp, loads) -> dict:
+    """The N = 256 federation's bundle (its two client stacks, 2 x 256 x
+    42,698 fp32): one window of 256 events checkpointed, then resumed."""
+    import os
+    from repro_torch.obs import ObsConfig
+    fed = _scale_federation()
+    path, trace = f"{tmp}/n256.ckpt", f"{tmp}/n256.jsonl"
+    kw = dict(rounds=1, mode="event", engine="batched", buffer_size=SCALE["buffer_size"])
+    a = fed.run(checkpoint_path=path, checkpoint_every=SCALE["clients"],
+                obs=ObsConfig(trace_jsonl=trace), **kw)
+    b = fed.run(checkpoint_path=path, resume=True, **kw)
+    if _everything(a) != _everything(b):
+        fail("N=256: the resumed run differs from the run that wrote its checkpoint")
+    say("[checkpoint] N=256 batched afl: " + _bundle_figures(trace, path, loads[-1]))
+    return {"n256_bundle_bytes": os.path.getsize(path)}
+
+
+def _profile_counts(fn) -> tuple:
+    """One profiled call of ``fn``: its CUDA kernels by name and its
+    synchronising CUDA runtime calls (``SYNC_CALLS``) by name.  CUPTI
+    sometimes misses the first kernels of a profiled region (on an H100:
+    one to seven of the model's initialisation kernels in one reading of
+    three, with obs on and off alike), so the region opens with
+    ``PROFILE_PAD`` spin kernels that are not counted."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(10_000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = list(prof.events())
+        kernels = collections.Counter(
+            e.name for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not e.name.startswith(("Memcpy", "Memset")) and "spin_kernel" not in e.name)
+        if kernels:
+            syncs = collections.Counter(e.name for e in events if e.name in SYNC_CALLS)
+            return kernels, dict(sorted(syncs.items()))
+    fail(f"the profiler recorded no CUDA kernel in {PROFILER_TRIES} profiled runs")
+
+
+def phase_obs(whole):
+    """``[obs]``: the ``[checkpoint]`` runs again with ``obs=True``:
+    bit-equal to obs off, the trace reconciled with CommStats; a profiled
+    batched window of 7 launches the same CUDA kernels and makes the same
+    synchronising runtime calls with obs on as off; a second identical
+    run builds nothing; ``torch_profile`` writes a trace; and seconds a
+    window with obs off and on, in turns."""
+    import collections
+    import os
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.obs import ObsConfig, read_jsonl
+
+    cap = _Captured(algo1_federation())
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_obs_")
+    try:
+        for k, (name, kw, _) in enumerate(CKPT_RUNS):
+            trace = f"{tmp.name}/{k}.jsonl"
+            h0 = time.perf_counter()
+            res = cap.run(rounds=3, obs=ObsConfig(trace_jsonl=trace), **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - h0
+            a, a_params, a_secs = whole[name]
+            same = _everything(res) == _everything(a) and _same_params(cap.final(), a_params)
+            events = read_jsonl(trace)[1]
+            by = {}
+            for e in events:
+                by.setdefault(e["name"], []).append(e)
+            up, rep = by.get("upload", []), by.get("report", [])
+            bc = by.get("broadcast", [])
+            c = res.comm
+            ok = (len(up) == c.model_uploads and sum(e["nbytes"] for e in up) == c.upload_payload_bytes
+                  and sum(e["nbytes"] for e in up) + 4 * sum(e["n"] for e in rep) == c.uplink_bytes
+                  and sum(e["n"] for e in bc) == c.broadcasts
+                  and sum(e["nbytes"] for e in bc) == c.downlink_bytes
+                  and len(by.get("eval", [])) == len(res.records)
+                  and res.metrics["counters"]["uploads"] == c.model_uploads)
+            say(f"[obs] {name}: {len(events)} trace events ({', '.join(f'{n} {len(v)}' for n, v in sorted(by.items()))}); "
+                f"{'bit-equal' if same else 'DIFFERS'} to obs off; upload events {len(up)} = "
+                f"model_uploads {c.model_uploads}, their nbytes {sum(e['nbytes'] for e in up)} + 4 x "
+                f"{sum(e['n'] for e in rep)} reports = uplink bytes {c.uplink_bytes}, broadcasts "
+                f"{sum(e['n'] for e in bc)} / {c.broadcasts} with {sum(e['nbytes'] for e in bc)} / "
+                f"{c.downlink_bytes} bytes: {'reconciled' if ok else 'NOT RECONCILED'}; {secs:.3f} s "
+                f"(obs off {a_secs:.3f} s)")
+            if not (same and ok):
+                fail(f"obs {name}: numbers differ with obs on, or the trace does not reconcile")
+        # a profile can miss kernels but never invents one: the complete
+        # reading is the most of each kernel any reading saw; obs must
+        # reach it (obs removes nothing) and no reading may pass it (obs
+        # adds nothing); the synchronising calls must agree everywhere
+        window = dict(rounds=1, mode="event", algorithm="vafl", engine="batched")
+        turns = (False, True, True, False) * 2
+        readings = [(on, *_profile_counts(lambda on=on: cap.run(obs=True if on else None,
+                                                                 **window)))
+                    for on in turns]
+        full = collections.Counter()
+        for _, k, _ in readings:
+            full |= k
+        complete = {on: sum(1 for o, k, _ in readings if o == on and k == full)
+                    for on in (False, True)}
+        syncs = {tuple(sy.items()) for _, _, sy in readings}
+        say(f"[obs] profiled batched window of 7, {len(turns)} readings in turns (off, on, on, "
+            f"off): CUDA kernels off {[sum(k.values()) for o, k, _ in readings if not o]}, on "
+            f"{[sum(k.values()) for o, k, _ in readings if o]}; complete ({sum(full.values())} "
+            f"kernels, {len(full)} names) off {complete[False]} of 4, on {complete[True]} of 4; "
+            f"synchronising runtime calls {sorted(syncs)}")
+        if not complete[True] or not complete[False] or len(syncs) != 1:
+            fail("obs changed a window's CUDA kernels or synchronising calls")
+        again = [cap.run(obs=True, **window).metrics["gauges"]["jit_compiles"] for _ in range(2)]
+        say(f"[obs] jit_compiles (kernel builds during the run) of two identical runs: {again}")
+        if again[1] != 0:
+            fail(f"a second identical run built {again[1]} kernels")
+        prof_dir = f"{tmp.name}/prof"
+        cap.run(obs=ObsConfig(torch_profile=prof_dir), **window)
+        files = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
+        sizes = [os.path.getsize(f"{prof_dir}/{f}") for f in files]
+        say(f"[obs] torch_profile: {len(files)} Chrome trace file(s), {sizes} bytes")
+        if len(files) != 1 or not sizes[0]:
+            fail("ObsConfig(torch_profile=...) wrote no trace")
+        laps = dict(rounds=3, mode="event", algorithm="vafl", engine="batched")
+        per = {False: [], True: []}
+        for _ in range(OBS_LAPS):
+            for on in (False, True, True, False):
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                cap.run(obs=True if on else None, **laps)
+                torch.cuda.synchronize()
+                per[on].append((time.perf_counter() - h0) / 3)
+        off_m, on_m = statistics.median(per[False]), statistics.median(per[True])
+        say(f"[obs] seconds a batched window of 7 (vafl, 3 windows a run, {OBS_LAPS} x (off, on, "
+            f"on, off)): off median {off_m:.4f} (range {min(per[False]):.4f}-{max(per[False]):.4f}),"
+            f" on median {on_m:.4f} (range {min(per[True]):.4f}-{max(per[True]):.4f}); on / off "
+            f"{on_m / off_m:.4f}")
+    finally:
+        tmp.cleanup()
+    return {"off_s": off_m, "on_s": on_m, "window_kernels": sum(full.values()),
+            "window_syncs": readings[0][2]}
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (src/repro_torch is missing)")
@@ -1149,6 +1599,24 @@ def main() -> None:
     mark("event")
     (b_gd, b_tq), b_secs, b_busy, scale = phase_batched_path(seq_vafl)
     mark("batched")
+    read = _reset_launches()
+    phase_round_scenario()
+    rs_counts = read()                           # read just after the round-scenario path
+    mark("round-scenario")
+    read = _reset_launches()
+    whole, ckpt = phase_checkpoint()
+    ck_counts = read()                           # read just after the checkpoint path
+    mark("checkpoint")
+    read = _reset_launches()
+    obs = phase_obs(whole)
+    obs_counts = read()                          # read just after the obs path
+    mark("obs")
+    for what, counts in (("round-scenario", rs_counts), ("checkpoint", ck_counts),
+                         ("obs", obs_counts)):
+        if counts["grad_diff_norm"] <= 0 or counts["topk_quant"] <= 0:
+            fail(f"a kernel of the {what} path never launched: {counts}")
+        if counts["flash_attention"] or counts["linear_scan"]:
+            fail(f"the {what} path launched a serving kernel: {counts}")
     # rwkv6_3b's prefill-vs-decode check is gated in fp32: at bf16 the
     # random-weight stack's two paths drift apart with depth in the
     # reference as in the port (PERF.md §6; the bf16 gate at depth 2 is
@@ -1173,7 +1641,10 @@ def main() -> None:
                    tree_cuda_launches_per_call=tree["cuda_launches_per_call"],
                    event_launches=ev_gd, event_tree_case=one["case"], event_tree_ms=one["ms"],
                    event_tree_plain_ms=one["plain_ms"], event_tree_bound_ms=one["bound_ms"],
-                   batched_launches=b_gd)
+                   batched_launches=b_gd,
+                   round_scenario_launches=rs_counts["grad_diff_norm"],
+                   checkpoint_launches=ck_counts["grad_diff_norm"],
+                   obs_launches=obs_counts["grad_diff_norm"])
     # the topk_quant row times what the main path launches, the encode;
     # the elementwise entry (off the path, held against ref.topk_quant)
     # keeps its figures under elementwise_*
@@ -1184,7 +1655,10 @@ def main() -> None:
                    elementwise_shape=ew["shape"], elementwise_ms=ew["ms"],
                    elementwise_plain_ms=ew["plain_ms"], elementwise_bound_ms=ew["bound_ms"],
                    elementwise_bound_by=ew["bound_by"], elementwise_max_abs_err=ew["max_abs_err"],
-                   event_launches=ev_tq, batched_launches=b_tq)
+                   event_launches=ev_tq, batched_launches=b_tq,
+                   round_scenario_launches=rs_counts["topk_quant"],
+                   checkpoint_launches=ck_counts["topk_quant"],
+                   obs_launches=obs_counts["topk_quant"])
     main_fa = dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"],
                    tensor_core_instructions=sass["flash_attention"])
     main_ls = dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"],
@@ -1204,6 +1678,11 @@ def main() -> None:
         f"batched {scale['events_per_s']:.3f} events/s, sequential "
         f"{scale['seq_events_per_s']:.3f} events/s, device busy {scale['busy']:.1%} of a "
         f"profiled window")
+    say(f"[time] obs (host clock, synchronized): a batched window of 7, median "
+        f"{obs['off_s']:.4f} s off, {obs['on_s']:.4f} s on; a window's CUDA kernels "
+        f"{obs['window_kernels']} and synchronising calls {obs['window_syncs']}, the same "
+        f"either way; checkpoint: N={SCALE['clients']} bundle {ckpt['n256_bundle_bytes']} "
+        f"bytes, SIGKILL resume from event {ckpt['killed_at_event']}")
     for arch, row in (("starcoder2_3b", main_fa), ("rwkv6_3b", main_ls)):
         st = served[arch]
         share = st["launches"] * row["ms"] / 1e3 / st["prefill_s"]

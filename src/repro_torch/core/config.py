@@ -1,17 +1,29 @@
 """FL run configuration.  Port of ``repro.core.config``: the same field
-names and defaults.
+names, defaults and validation.
 
-Fields whose subsystem this port does not have yet raise
-``NotImplementedError`` when set, rather than being ignored:
-observability, checkpoint-resume and client sharding (ROADMAP.md,
-queue 1 items 7, 8 and 10).  ``engine`` selects the event runtime's
-engine: "sequential" (one client per event) or "batched" (windows of
-``max_batch`` clients as one batched update, a FedBuff buffer of
-``buffer_size`` uploads, ``eval_cache``).  ``scenario`` resolves through
-``repro_torch.sim``.
-``value_backend`` here is a *stacked* function, ``(stacked_a,
-stacked_b) -> (W,)``; None selects the grad_diff_norm kernel's wrapper.  The device is not a field: the entry points take
-``device=`` (default ``"cuda"``).
+A field whose subsystem this port does not have yet raises
+``NotImplementedError`` when set, rather than being ignored: client
+sharding (ROADMAP.md, queue 1 item 10).
+
+* ``engine`` selects the event runtime's engine: "sequential" (one
+  client per event) or "batched" (windows of ``max_batch`` clients as
+  one batched update, a FedBuff buffer of ``buffer_size`` uploads,
+  ``eval_cache``).
+* ``scenario`` resolves through ``repro_torch.sim``.
+* ``checkpoint_path`` names ONE run-state file
+  (``repro_torch.checkpoint``) written atomically every
+  ``checkpoint_every`` events (sequential loop, batched engine) or
+  rounds (round runtime, barrier); ``resume=True`` continues from it,
+  bit for bit, when it exists.
+* ``obs`` (None, True, a ``repro_torch.obs.ObsConfig`` or a dict of its
+  fields) turns on tracing, metrics and exporters without changing a
+  number.
+* ``value_backend`` here is a *stacked* function, ``(stacked_a,
+  stacked_b) -> (W,)``; None selects the grad_diff_norm kernel's
+  wrapper.
+
+The device is not a field: the entry points take ``device=`` (default
+``"cuda"``).
 """
 from __future__ import annotations
 
@@ -27,8 +39,7 @@ ENGINES = ("sequential", "batched")
 
 # field -> (value meaning "off", ROADMAP.md queue 1 item that ports it);
 # any other value is a subsystem not ported yet
-_NOT_PORTED = {"obs": (None, 8), "checkpoint_path": (None, 7), "resume": (False, 7),
-               "shard_clients": (False, 10)}
+_NOT_PORTED = {"shard_clients": (False, 10)}
 
 
 @dataclass
@@ -86,12 +97,19 @@ class FLRunConfig:
             # scenario is configured
             from repro_torch.sim import resolve_scenario
             self.scenario = resolve_scenario(self.scenario)
-        if self.eval_subsample < 0:
-            raise ValueError(f"eval_subsample must be >= 0 (got {self.eval_subsample})")
-        if self.checkpoint_every != 0:
-            raise NotImplementedError("checkpoint_every needs checkpoint-resume, "
-                                      "not ported to repro_torch yet (ROADMAP.md, queue 1 "
-                                      "item 7)")
+        if self.obs is not None:
+            # lazy import, mirroring scenario=
+            from repro_torch.obs import resolve_obs
+            self.obs = resolve_obs(self.obs)
+        if self.eval_subsample < 0 or self.eval_cache < 0:
+            raise ValueError("eval_subsample and eval_cache must be >= 0 "
+                             f"(got {self.eval_subsample}, {self.eval_cache})")
+        if self.checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be >= 0 (got {self.checkpoint_every})")
+        if self.checkpoint_every > 0 and not self.checkpoint_path:
+            raise ValueError("checkpoint_every > 0 needs a checkpoint_path")
+        if self.resume and not self.checkpoint_path:
+            raise ValueError("resume=True needs a checkpoint_path")
 
     def make_algorithm(self):
         """``(Algorithm spec, UploadPolicy, Aggregator)`` for one run."""

@@ -1,5 +1,6 @@
 """``Federation``: the one-object public API for an FL experiment.  Port
-of ``repro.core.federation`` without ``serve`` and observability.
+of ``repro.core.federation`` without ``serve`` (ROADMAP.md, queue 1
+item 9).
 
     from repro_torch.core.federation import Federation
 
@@ -10,7 +11,10 @@ of ``repro.core.federation`` without ``serve`` and observability.
 
 ``model`` is "mlp", "cnn", a ``(forward_fn, init_fn, model_cfg)``
 triple, or omitted when explicit ``init_params_fn``/``loss_fn``/
-``evaluate_fn`` are passed.  The federation lives on ``device``, a CUDA
+``evaluate_fn`` are passed.  ``obs`` is ``True`` or a
+``repro_torch.obs.ObsConfig`` enabling dual-timeline tracing, metrics
+and exporters (``None``, the default, is off); ``checkpoint_path=``,
+``checkpoint_every=`` and ``resume=`` make a run resumable.  The federation lives on ``device``, a CUDA
 device unless the caller asks for the CPU; it never falls back on its
 own.  Extra keyword arguments flow into ``FLRunConfig``.
 """
@@ -58,7 +62,8 @@ class Federation:
                  loss_fn: Optional[Callable] = None,
                  evaluate_fn: Optional[Callable] = None,
                  client_eval_fn: Optional[Callable] = None,
-                 scenario=None, eval_batch: int = 500, device="cuda", **config):
+                 scenario=None, obs=None, eval_batch: int = 500, device="cuda",
+                 **config):
         self.device = resolve_device(device)
         self.data = data
         num_clients = len(data.counts)
@@ -94,7 +99,7 @@ class Federation:
         self.config = FLRunConfig(
             algorithm=algorithm, num_clients=num_clients, local=local or LocalSpec(),
             compressor=compressor, broadcast_compressor=broadcast_compressor,
-            scenario=scenario, **config)
+            scenario=scenario, obs=obs, **config)
 
     def _client_eval_for(self, cfg):
         """The per-client evaluator for one run: the explicit

@@ -1,8 +1,7 @@
 """FL experiment metrics: communication accounting (the paper's headline
 numbers), CCR (Eq. 4) as a count ratio and a byte-accurate ratio,
 accuracy tracking, time-to-accuracy.  Port of ``repro.core.metrics``
-(framework-free; ``to_summary`` without the reference's obs percentiles
-and trace path, which come with observability)."""
+(framework-free)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -132,6 +131,13 @@ class RunResult:
     client_uplink_bytes: Optional[List[int]] = None
     client_downlink_bytes: Optional[List[int]] = None
     client_failed_rounds: Optional[List[int]] = None
+    # observability surface (repro_torch.obs, docs/OBSERVABILITY.md) —
+    # set by Observer.finish when the run had obs enabled: ``trace_path``
+    # is the exported trace file (JSONL or Chrome trace_event JSON),
+    # ``metrics`` the registry snapshot ({"counters": ..., "gauges":
+    # ..., "histograms": ...}, including the jit_compiles gauge).
+    trace_path: Optional[str] = None
+    metrics: Optional[dict] = None
 
     @property
     def best_acc(self) -> float:
@@ -146,6 +152,11 @@ class RunResult:
         """The run as one JSON-ready dict (the Table III harness's per-run
         numbers, ``repro_torch.bench.fl_common.table3_row``)."""
         c = self.comm
+        # scalar percentiles from the pow2 histograms (repro_torch.obs)
+        # where a caller wants one number, not a bucket dict; None when
+        # the run had obs off or never touched the histogram
+        from repro_torch.obs.metrics import snapshot_percentile
+        hists = (self.metrics or {}).get("histograms", {})
         return {
             "algorithm": self.algorithm,
             "target_acc": self.target_acc,
@@ -166,6 +177,10 @@ class RunResult:
                           else round(self.idle_fraction, 4)),
             "failed_rounds": (None if self.client_failed_rounds is None
                               else int(sum(self.client_failed_rounds))),
+            "staleness_p95": snapshot_percentile(hists.get("staleness"), 95),
+            "queue_depth_p95": snapshot_percentile(hists.get("queue_depth"), 95),
+            "commit_latency_ms_p95": snapshot_percentile(hists.get("commit_latency_ms"), 95),
+            "trace_path": self.trace_path,
         }
 
     def finalize_target(self):

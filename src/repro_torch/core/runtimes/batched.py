@@ -1,6 +1,6 @@
 """Batched async execution engine (``FLRunConfig.engine="batched"``).
-Port of ``repro.core.runtimes.batched`` without its checkpoint, obs and
-client-sharding branches (``FLRunConfig`` rejects those settings).
+Port of ``repro.core.runtimes.batched`` without its client-sharding
+branch (``FLRunConfig`` rejects ``shard_clients``).
 
 Per-client state lives in device-resident stacked trees (leading axis =
 client) instead of Python lists; each scheduler window of up to
@@ -43,9 +43,13 @@ topk_int8 encode per accepted upload).
 """
 from __future__ import annotations
 
+import dataclasses
+import os
+
 import numpy as np
 import torch
 
+import repro_torch.checkpoint.store as ck
 from repro_torch.algorithms.base import Aggregator
 from repro_torch.common.pytree import (stacked_index, tree_bytes, tree_gather, tree_map,
                                        tree_scatter_, tree_stack)
@@ -54,11 +58,13 @@ from repro_torch.core.client import make_local_update_keyed
 from repro_torch.core.metrics import CommStats, RoundRecord, RunResult
 from repro_torch.core.runtimes.common import (_BROADCAST, _UPLOAD, _attach_sim_result,
                                               _compressed_broadcast, _compressed_upload,
-                                              _enc_seed, _event_helpers, _make_codecs,
-                                              _tree_delta, _value_fn, commit_full,
-                                              commit_full_flush, commit_win, commit_win_flush)
+                                              _enc_seed, _event_helpers, _finish_obs,
+                                              _make_codecs, _obs_for_run, _tree_delta,
+                                              _value_fn, commit_full, commit_full_flush,
+                                              commit_win, commit_win_flush)
 from repro_torch.core.scheduler import EventScheduler
 from repro_torch.core.value import communication_values_host
+from repro_torch.obs.console import progress
 
 
 class _HostCopy:
@@ -102,9 +108,10 @@ class _AccCache:
     power of two to bound its compiled variants; eager torch needs no
     padding and the padded rows were never read)."""
 
-    def __init__(self, num_clients: int, every: int, batch_eval):
+    def __init__(self, num_clients: int, every: int, batch_eval, obs=None):
         self.every = every
         self.batch_eval = batch_eval
+        self.obs = obs
         self.acc = np.zeros(num_clients, np.float32)
         # "never evaluated" sorts as infinitely stale
         self.age = np.full(num_clients, np.iinfo(np.int32).max, np.int64)
@@ -113,6 +120,8 @@ class _AccCache:
         """fp32 accuracies for the window's clients, indexed by ``newp``
         rows (``clients[r]`` = client id of row r), on the host."""
         need = np.flatnonzero(self.age[clients] >= self.every)
+        if self.obs is not None:
+            self.obs.eval_cache(hits=len(clients) - len(need), misses=len(need))
         if len(need):
             fresh = self.batch_eval(tree_gather(newp, need)).detach().cpu().numpy()
             self.acc[clients[need]] = fresh.astype(np.float32)
@@ -146,9 +155,10 @@ def _run_event_batched(run_cfg, policy, aggregator, global_params, gen, local_up
     prev_global = global_params
     prev_prev_global = global_params
 
+    obs = _obs_for_run(run_cfg)
     sq_diff = _value_fn(run_cfg)
     batch_eval, _, norms_fn = _event_helpers(run_cfg, client_eval_fn, sq_diff)
-    acc_cache = (_AccCache(N, run_cfg.eval_cache, batch_eval)
+    acc_cache = (_AccCache(N, run_cfg.eval_cache, batch_eval, obs=obs)
                  if policy.needs_values and run_cfg.eval_cache > 0 else None)
     # a window's final flush folds into the commit only when the default
     # flush math applies (a plugin aggregator's override must stay in
@@ -159,7 +169,7 @@ def _run_event_batched(run_cfg, policy, aggregator, global_params, gen, local_up
     W = max(1, min(W, N))
     K = max(1, run_cfg.buffer_size)
     total_events = run_cfg.rounds * N
-    sched = EventScheduler(N, speed, network=net, availability=avail)
+    sched = EventScheduler(N, speed, network=net, availability=avail, obs=obs)
     # a reactive scenario consumes per-event payload bytes (or
     # availability draws) at reschedule time, so the pipeline's
     # reschedule+pop-ahead must wait for the window's upload decisions
@@ -172,8 +182,10 @@ def _run_event_batched(run_cfg, policy, aggregator, global_params, gen, local_up
     buffer: list = []
     buf_stale: list = []              # their staleness weights s(tau)
 
-    def flush():
+    def flush(sim=None):
         nonlocal global_params, prev_global, prev_prev_global, server_version
+        if obs is not None:
+            obs.flush(len(buffer), sim)
         prev_prev_global = prev_global
         prev_global = global_params
         if len(buffer) == 1:          # bit-exact sequential mix (K=1 path)
@@ -203,12 +215,108 @@ def _run_event_batched(run_cfg, policy, aggregator, global_params, gen, local_up
     last_eval = (None, None)           # (server_version, deferred acc)
     ev = 0
     pre_d = None                       # next window's pre-gathered data
-    times, idx_np = (sched.pop_window(min(W, total_events))
-                     if total_events else (np.empty(0), np.empty(0, int)))
+    nxt = None
+
+    # full-run checkpoint-resume (docs/RESILIENCE.md).  The pipeline is
+    # one window deep, so a checkpoint taken at the end of a loop body
+    # bundles the already-popped NEXT window with the scheduler snapshot
+    # (its data gather, already dispatched, is not stored: a resumed run
+    # gathers its first window itself); buffered updates are
+    # materialised as host trees (their stacked-window sources don't
+    # outlive the iteration) and restored as size-1 stacks, exactly how
+    # codec reconstructions enter the buffer, so the flush math is
+    # unchanged.  Deferred eval scalars resolve into COPIES for the
+    # bundle (each waits for its own pending copy), while the live
+    # records stay deferred: a checkpoint may wait for the card, a
+    # window without one never does.
+    ckpt_path, ckpt_every = run_cfg.checkpoint_path, run_cfg.checkpoint_every
+    fingerprint = (ck.run_fingerprint(run_cfg, "batched", global_params)
+                   if ckpt_path else None)
+
+    def _save_ckpt():
+        h0 = obs.host_now() if obs is not None else 0.0
+        state = {
+            "event": ev,
+            "rng": ck.generator_state(gen),
+            "global_params": ck.tree_to_host(global_params),
+            "prev_global": ck.tree_to_host(prev_global),
+            "prev_prev_global": ck.tree_to_host(prev_prev_global),
+            "client_params": ck.tree_to_host(client_params),
+            "prev_grads": ck.tree_to_host(prev_grads),
+            "model_version": model_version.copy(),
+            "server_version": server_version,
+            "comm": dict(comm.__dict__),
+            "records": [dataclasses.replace(r, global_acc=float(r.global_acc))
+                        for r in records],
+            "last_eval": (None if last_eval[0] is None
+                          else (int(last_eval[0]), float(last_eval[1]))),
+            "buffer": [ck.tree_to_host(stacked_index(ref, row)) for ref, row in buffer],
+            "buf_stale": list(buf_stale),
+            "policy": policy.state(),
+            "ef": {c: ck.tree_to_host(t) for c, t in ef.residuals.items()},
+            "acc_cache": (None if acc_cache is None else
+                          {"acc": acc_cache.acc.copy(), "age": acc_cache.age.copy()}),
+            "nxt": (None if nxt is None else
+                    (np.asarray(nxt[0], np.float64), np.asarray(nxt[1], np.int64))),
+            "sched": sched.snapshot(),
+            "obs_metrics": obs.metrics.snapshot() if obs is not None else None,
+        }
+        ck.save_run_state(ckpt_path, state, fingerprint)
+        if obs is not None:
+            obs.checkpoint(ev, h0)
+
+    if run_cfg.resume and ckpt_path and os.path.exists(ckpt_path):
+        st = ck.load_run_state(ckpt_path, fingerprint)
+        ev = int(st["event"])
+        ck.set_generator_state(gen, st["rng"])
+        global_params = ck.tree_to_device(st["global_params"], dev)
+        prev_global = ck.tree_to_device(st["prev_global"], dev)
+        prev_prev_global = ck.tree_to_device(st["prev_prev_global"], dev)
+        client_params = ck.tree_to_device(st["client_params"], dev)
+        prev_grads = ck.tree_to_device(st["prev_grads"], dev)
+        model_version = np.asarray(st["model_version"], int).copy()
+        server_version = int(st["server_version"])
+        comm.__dict__.update(st["comm"])
+        records = list(st["records"])
+        if st["last_eval"] is not None:
+            last_eval = (int(st["last_eval"][0]), st["last_eval"][1])
+        buffer[:] = [(tree_map(lambda x: x.unsqueeze(0), ck.tree_to_device(t, dev)), 0)
+                     for t in st["buffer"]]
+        buf_stale[:] = list(st["buf_stale"])
+        if st["policy"] is not None:
+            policy.set_state(st["policy"])
+        ef.residuals = {int(c): ck.tree_to_device(t, dev) for c, t in st["ef"].items()}
+        if acc_cache is not None and st["acc_cache"] is not None:
+            acc_cache.acc = np.asarray(st["acc_cache"]["acc"], np.float32).copy()
+            acc_cache.age = np.asarray(st["acc_cache"]["age"], np.int64).copy()
+        sched.restore(st["sched"])
+        if st["nxt"] is not None:
+            times = np.asarray(st["nxt"][0], np.float64)
+            idx_np = np.asarray(st["nxt"][1], np.int64)
+        elif ev < total_events:
+            # the writer's event budget ended at this checkpoint, so it
+            # never popped a next window; a resume that EXTENDS the run
+            # (rounds is outside the fingerprint) pops it now: the
+            # restored scheduler is exactly the state the longer run
+            # popped from mid-body
+            times, idx_np = sched.pop_window(min(W, total_events - ev))
+        else:
+            times, idx_np = np.empty(0), np.empty(0, int)
+        if obs is not None:
+            if st.get("obs_metrics"):
+                obs.metrics.restore(st["obs_metrics"])
+            obs.checkpoint(ev, obs.host_now(), restored=True)
+    else:
+        times, idx_np = (sched.pop_window(min(W, total_events))
+                         if total_events else (np.empty(0), np.empty(0, int)))
+    if obs is not None:                # opt-in device profiler (hot loop)
+        obs.profile_start()
+        obs.sampler_start()            # opt-in live metric sampler
     while len(idx_np):
         t_now = float(times[-1])
         w = len(idx_np)
         full = w == N                  # a full window = client permutation
+        h0 = obs.host_now() if obs is not None else 0.0
         idx_dev = None if full else _device_rows(idx_np, dev)
 
         # ---- dispatch the window's device work ------------------------
@@ -227,6 +335,10 @@ def _run_event_batched(run_cfg, policy, aggregator, global_params, gen, local_up
             newp, eff, _ = local_update(sub_base, d_w, gen, ev, clients=idx_np)
             row_of = np.arange(w)
         pre_d = None
+        if obs is not None:
+            # host_dur here is DISPATCH time (the card runs on after it);
+            # the window span measures dispatch through commit
+            obs.local_update(float(times[0]), t_now, h0, clients=w)
 
         # the policy's declared stacked inputs: ONE call per window each,
         # all read back by one device->host copy started at once.  Eq. 1
@@ -290,23 +402,30 @@ def _run_event_batched(run_cfg, policy, aggregator, global_params, gen, local_up
         for j in range(w):
             i = int(idx_np[j])
             r = int(row_of[j])
+            t_j = float(times[j])
             u0, d0 = comm.uplink_bytes, comm.downlink_bytes
             if policy.reports:
                 comm.record_report(1)
+                if obs is not None:
+                    obs.report(i, t_j)
             upload = policy.decide(i, None if V_w is None else float(V_w[j]),
                                    None if norms_w is None else float(norms_w[j]), thr)
 
             if upload:
+                p0 = comm.upload_payload_bytes
                 if codec.is_identity:
                     buffer.append((newp, r))
                     comm.record_upload(1)
                 else:
                     recon = _compressed_upload(codec, ef, comm, stacked_index(sub_base, r),
                                                stacked_index(newp, r), i,
-                                               _enc_seed(run_cfg, ev + j, i, _UPLOAD))
+                                               _enc_seed(run_cfg, ev + j, i, _UPLOAD), obs=obs)
                     buffer.append((tree_map(lambda x: x.unsqueeze(0), recon), 0))
                 staleness = server_version - model_version[i]
                 buf_stale.append(aggregator.stale_weight(staleness))
+                if obs is not None:
+                    obs.upload(i, t_j, staleness=int(staleness),
+                               nbytes=comm.upload_payload_bytes - p0, codec=codec.name)
                 if len(buffer) >= K:
                     if (j == w - 1 and len(buffer) > 1 and foldable_flush
                             and bcodec is None and all(ref is newp for ref, _ in buffer)):
@@ -315,11 +434,13 @@ def _run_event_batched(run_cfg, policy, aggregator, global_params, gen, local_up
                         rows = np.asarray([rr for _, rr in buffer])
                         coef, rho_sbar = buffered_coefs(buf_stale, aggregator.mix_rate)
                         pending = (rows, coef, rho_sbar)
+                        if obs is not None:
+                            obs.flush(len(buffer), t_j, folded=True)
                         server_version += 1
                         buffer.clear()
                         buf_stale.clear()
                     else:
-                        flush()
+                        flush(t_j)
 
             if bcodec is None:
                 comm.record_broadcast(1)
@@ -332,10 +453,14 @@ def _run_event_batched(run_cfg, policy, aggregator, global_params, gen, local_up
                     dl_rel[j] = ver_pos[server_version]
             else:
                 enc_downloads.append(_compressed_broadcast(
-                    bcodec, comm, global_params, 1, _enc_seed(run_cfg, ev + j, i, _BROADCAST)))
+                    bcodec, comm, global_params, 1, _enc_seed(run_cfg, ev + j, i, _BROADCAST),
+                    obs=obs))
             model_version[i] = server_version
             ev_up[j] = comm.uplink_bytes - u0
             ev_down[j] = comm.downlink_bytes - d0
+            if obs is not None:
+                obs.broadcast(i, t_j, nbytes=int(ev_down[j]),
+                              codec=None if bcodec is None else bcodec.name)
 
         if reactive:
             # byte-aware reschedule: each client restarts from its own
@@ -397,6 +522,10 @@ def _run_event_batched(run_cfg, policy, aggregator, global_params, gen, local_up
                 tree_scatter_(client_params, idx_dev, tree_stack(enc_downloads))
                 tree_scatter_(prev_grads, idx_dev, eff)
 
+        if obs is not None:
+            # one span per window: sim bounds = first/last completion,
+            # host duration = dispatch through commit (this point)
+            obs.window(w, float(times[0]), t_now, h0)
         prev_ev, ev = ev, ev + w
         epe = run_cfg.events_per_eval
         crossed = ev // epe - prev_ev // epe
@@ -405,26 +534,36 @@ def _run_event_batched(run_cfg, policy, aggregator, global_params, gen, local_up
             # evaluation overlaps the next window's compute; a record whose
             # global model is bit-identical to the previous one (no flush
             # since) reuses its scalar outright
-            if last_eval[0] == server_version:
+            h0e = obs.host_now() if obs is not None else 0.0
+            reused = last_eval[0] == server_version
+            if reused:
                 acc = last_eval[1]     # bit-identical model: reuse (exact)
             else:
                 acc = _HostCopy(evaluate_fn(global_params))
                 last_eval = (server_version, acc)
+            if obs is not None:
+                # the acc scalar stays deferred: the hook never reads it
+                obs.eval_event(ev, t_now, h0e, boundaries=crossed, reused=reused)
             records.append(RoundRecord(round=ev, time=t_now, global_acc=acc,
                                        uploads_so_far=comm.model_uploads,
                                        boundaries_crossed=crossed))
             if verbose:
-                print(f"[{run_cfg.algorithm}/batched] ev {ev:5d} t={t_now:8.1f} "
-                      f"acc={float(acc):.4f} uploads={comm.model_uploads}", flush=True)
+                progress(f"[{run_cfg.algorithm}/batched] ev {ev:5d} t={t_now:8.1f} "
+                         f"acc={float(acc):.4f} uploads={comm.model_uploads}")
+        if ckpt_every and ev // ckpt_every > prev_ev // ckpt_every:
+            _save_ckpt()
 
         if nxt is None:
             break
         times, idx_np = nxt
 
+    if obs is not None:
+        obs.profile_stop()
+        obs.sampler_stop()
     if buffer:  # partial buffer at run end: flush so no update is lost
-        flush()
+        flush(float(sched.now))
 
     for r in records:                  # resolve the deferred eval scalars
         r.global_acc = float(r.global_acc)
     res = RunResult(run_cfg.algorithm, records, comm, run_cfg.target_acc).finalize_target()
-    return _attach_sim_result(res, sched)
+    return _finish_obs(_attach_sim_result(res, sched), obs)

@@ -3,14 +3,15 @@ codec wiring with per-client error feedback, deterministic per-transfer
 encode seeds, participation sampling, the scenario models, the stacked
 per-client inputs and the batched engine's helper set (the counterpart
 of the reference's ``_engine_jits``, as plain functions on tensors).
-Port of ``repro.core.runtimes.common`` without its obs hooks and client
-sharding.
+Port of ``repro.core.runtimes.common`` without client sharding.
 
 Nothing in here knows which algorithm is running; runtimes consume the
 ``UploadPolicy`` / ``Aggregator`` protocol for every algorithm-dependent
 decision.
 """
 from __future__ import annotations
+
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -39,6 +40,31 @@ def _make_codecs(run_cfg):
 
 
 _UPLOAD, _BROADCAST = 1, 2
+
+
+# ------------------------------------------------- obs plumbing ---
+
+def _obs_for_run(run_cfg):
+    """The run's ``repro_torch.obs`` Observer, or None when observability
+    is off (``obs=None``, the default): every hook site in the runtimes
+    is behind an ``if obs is not None``, so the disabled path costs one
+    branch, nothing else."""
+    ocfg = getattr(run_cfg, "obs", None)
+    if ocfg is None:
+        return None
+    from repro_torch.obs import Observer
+    return Observer(ocfg, meta={
+        "algorithm": run_cfg.algorithm, "engine": run_cfg.engine,
+        "num_clients": run_cfg.num_clients, "seed": run_cfg.seed,
+        "compressor": run_cfg.compressor,
+        "broadcast_compressor": run_cfg.broadcast_compressor})
+
+
+def _finish_obs(res, obs):
+    """Seal the observer onto the result (exports + metrics snapshot)."""
+    if obs is not None:
+        obs.finish(res)
+    return res
 
 
 # ------------------------------------------------- scenario plumbing ---
@@ -87,63 +113,84 @@ def _tree_apply_delta(base, delta):
     return tree_map(lambda b, d: (b.float() + d.float()).to(b.dtype), base, delta)
 
 
-def _compressed_upload(codec, ef, comm, base, client_tree, i, seed):
+def _compressed_upload(codec, ef, comm, base, client_tree, i, seed, obs=None):
     """One client's compressed upload: encode codec(delta vs ``base``, the
     model the client downloaded) with error feedback, account the wire
-    bytes, and return the reconstruction the server receives."""
+    bytes, and return the reconstruction the server receives.  Under obs
+    the encode+decode is a host-timed "encode" span tagged with the
+    codec."""
     delta = _tree_delta(client_tree, base)
-    payload, decoded = compress_update(codec, ef, i, delta, seed=seed)
+    with (obs.timed("encode", client=i, codec=codec.name)
+          if obs is not None else nullcontext()):
+        payload, decoded = compress_update(codec, ef, i, delta, seed=seed)
     comm.record_upload(1, nbytes=payload.nbytes)
     return _tree_apply_delta(base, decoded)
 
 
-def _compressed_broadcast(bcodec, comm, params, n, seed):
+def _compressed_broadcast(bcodec, comm, params, n, seed, obs=None):
     """Encode one model broadcast to ``n`` clients; returns the lossy
     model they receive (no EF on the downlink)."""
-    bp = bcodec.encode(params, seed=seed)
-    out = bcodec.decode(bp)
+    with (obs.timed("encode", codec=bcodec.name, broadcast=True)
+          if obs is not None else nullcontext()):
+        bp = bcodec.encode(params, seed=seed)
+        out = bcodec.decode(bp)
     comm.record_broadcast(n, nbytes=n * bp.nbytes)
     return out
 
 
-def _round_uploads(run_cfg, codec, ef, comm, base, stacked, mask, t, up_acc=None):
+def _round_uploads(run_cfg, codec, ef, comm, base, stacked, mask, t, up_acc=None,
+                   obs=None, sim=None):
     """One round's upload leg: account the selected set's uploads; with a
     codec, each selected client ships codec(delta vs ``base``) with error
     feedback and the reconstructions are scattered back into the stack
     (the server aggregates what it received).  ``up_acc`` (optional (N,)
-    int array) receives each client's on-the-wire upload bytes."""
+    int array) receives each client's on-the-wire upload bytes.  Under
+    obs each selected client's upload becomes a trace event (staleness 0:
+    synchronous rounds aggregate fresh models)."""
     sel = [int(i) for i in np.flatnonzero(mask)]
     if codec.is_identity:
         comm.record_upload(len(sel))
         if up_acc is not None:
             up_acc[sel] += comm.model_bytes
+        if obs is not None:
+            for i in sel:
+                obs.upload(i, sim, nbytes=comm.model_bytes, codec=codec.name)
         return stacked
     recon = []
     for i in sel:
         b0 = comm.uplink_bytes
         recon.append(_compressed_upload(codec, ef, comm, base, stacked_index(stacked, i), i,
-                                        _enc_seed(run_cfg, t, i, _UPLOAD)))
+                                        _enc_seed(run_cfg, t, i, _UPLOAD), obs=obs))
         if up_acc is not None:
             up_acc[i] += comm.uplink_bytes - b0
+        if obs is not None:
+            obs.upload(i, sim, nbytes=comm.uplink_bytes - b0, codec=codec.name)
     if sel:   # one scatter per leaf, not one stack copy per client
         stacked = tree_scatter(stacked, sel, tree_stack(recon))
     return stacked
 
 
-def _round_broadcast(run_cfg, bcodec, comm, global_params, n, t, down_acc=None):
+def _round_broadcast(run_cfg, bcodec, comm, global_params, n, t, down_acc=None, obs=None,
+                     sim=None):
     """One round's broadcast leg: returns the model the clients receive
     (lossy under a downlink codec).  ``down_acc`` (optional (n,) int
-    array) receives each client's downlink bytes."""
+    array) receives each client's downlink bytes.  Under obs the whole
+    round's broadcast is ONE trace event with n receivers and the TOTAL
+    wire bytes."""
     if bcodec is None:
         comm.record_broadcast(n)
         if down_acc is not None:
             down_acc += comm.model_bytes
+        if obs is not None:
+            obs.broadcast(None, sim, nbytes=n * comm.model_bytes, n=n)
         return global_params
     d0 = comm.downlink_bytes
     out = _compressed_broadcast(bcodec, comm, global_params, n,
-                                _enc_seed(run_cfg, t, 0, _BROADCAST))
+                                _enc_seed(run_cfg, t, 0, _BROADCAST), obs=obs)
     if down_acc is not None:
         down_acc += (comm.downlink_bytes - d0) // n
+    if obs is not None:
+        obs.broadcast(None, sim, nbytes=comm.downlink_bytes - d0, n=n, codec=bcodec.name)
     return out
 
 

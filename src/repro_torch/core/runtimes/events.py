@@ -1,7 +1,6 @@
 """Event-driven runtime: wall-clock asynchronous simulation on the
-deterministic event scheduler.  Port of ``repro.core.runtimes.events``
-without its checkpoint and obs branches (``FLRunConfig`` rejects those
-settings).  ``run_event_driven`` is the entry point; it dispatches on
+deterministic event scheduler.  Port of ``repro.core.runtimes.events``.
+``run_event_driven`` is the entry point; it dispatches on
 the algorithm's ``event_mode``: sync-barrier baselines like FedAvg run
 the round-barrier runtime (``repro_torch.core.runtimes.sync``); every
 other algorithm runs ``run_cfg.engine``: the sequential loop here, or
@@ -15,20 +14,24 @@ and each accepted upload enters the global model through the
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
+import repro_torch.checkpoint.store as ck
 from repro_torch.common.pytree import stacked_index, tree_broadcast, tree_bytes, tree_map
 from repro_torch.core.client import make_local_update
 from repro_torch.core.config import resolve_device
 from repro_torch.core.metrics import CommStats, RoundRecord, RunResult
 from repro_torch.core.runtimes.common import (_BROADCAST, _UPLOAD, _attach_sim_result,
                                               _compressed_broadcast, _compressed_upload,
-                                              _enc_seed, _event_helpers, _make_codecs,
-                                              _scenario_models, _tree_delta, _value_fn)
+                                              _enc_seed, _event_helpers, _finish_obs,
+                                              _make_codecs, _obs_for_run, _scenario_models,
+                                              _tree_delta, _value_fn)
 from repro_torch.core.scheduler import EventScheduler, SpeedModel
+from repro_torch.obs.console import progress
 
 
 def run_event_driven(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
@@ -82,17 +85,78 @@ def run_event_driven(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
 
     records: list = []
     total_events = run_cfg.rounds * N
-    sched = EventScheduler(N, speed, network=net, availability=avail)
+    obs = _obs_for_run(run_cfg)
+    sched = EventScheduler(N, speed, network=net, availability=avail, obs=obs)
     batch_eval, values_fn, norms_fn = _event_helpers(run_cfg, client_eval_fn,
                                                      _value_fn(run_cfg))
 
-    for ev in range(total_events):
+    # full-run checkpoint-resume (docs/RESILIENCE.md): one atomic file
+    # holding everything the loop body touches, written every
+    # checkpoint_every events at the end of the body (nothing draws from
+    # the generator between the save and the next event); resume=True
+    # restores it when present and the run continues bit-identically
+    # from the saved event.
+    ckpt_path, ckpt_every = run_cfg.checkpoint_path, run_cfg.checkpoint_every
+    fingerprint = (ck.run_fingerprint(run_cfg, "events", global_params)
+                   if ckpt_path else None)
+
+    def _save_ckpt(next_ev):
+        h0 = obs.host_now() if obs is not None else 0.0
+        state = {
+            "event": next_ev,
+            "rng": ck.generator_state(gen),
+            "global_params": ck.tree_to_host(global_params),
+            "prev_global": ck.tree_to_host(prev_global),
+            "prev_prev_global": ck.tree_to_host(prev_prev_global),
+            "client_params": [ck.tree_to_host(t) for t in client_params],
+            "prev_grads": [ck.tree_to_host(t) for t in prev_grads],
+            "model_version": model_version.copy(),
+            "server_version": server_version,
+            "comm": dict(comm.__dict__),
+            "records": list(records),
+            "policy": policy.state(),
+            "ef": {c: ck.tree_to_host(t) for c, t in ef.residuals.items()},
+            "sched": sched.snapshot(),
+            "obs_metrics": obs.metrics.snapshot() if obs is not None else None,
+        }
+        ck.save_run_state(ckpt_path, state, fingerprint)
+        if obs is not None:
+            obs.checkpoint(next_ev, h0)
+
+    start_ev = 0
+    if run_cfg.resume and ckpt_path and os.path.exists(ckpt_path):
+        st = ck.load_run_state(ckpt_path, fingerprint)
+        start_ev = int(st["event"])
+        ck.set_generator_state(gen, st["rng"])
+        global_params = ck.tree_to_device(st["global_params"], dev)
+        prev_global = ck.tree_to_device(st["prev_global"], dev)
+        prev_prev_global = ck.tree_to_device(st["prev_prev_global"], dev)
+        client_params = [ck.tree_to_device(t, dev) for t in st["client_params"]]
+        prev_grads = [ck.tree_to_device(t, dev) for t in st["prev_grads"]]
+        model_version = np.asarray(st["model_version"], int).copy()
+        server_version = int(st["server_version"])
+        comm.__dict__.update(st["comm"])
+        records = list(st["records"])
+        if st["policy"] is not None:
+            policy.set_state(st["policy"])
+        ef.residuals = {int(c): ck.tree_to_device(t, dev) for c, t in st["ef"].items()}
+        sched.restore(st["sched"])
+        if obs is not None:
+            if st.get("obs_metrics"):
+                obs.metrics.restore(st["obs_metrics"])
+            obs.checkpoint(start_ev, obs.host_now(), restored=True)
+
+    for ev in range(start_ev, total_events):
         t_now, i = sched.pop()
         u0, d0 = comm.uplink_bytes, comm.downlink_bytes
         one = tree_broadcast(client_params[i], 1)
         d_i = {k: v[i:i + 1] for k, v in data.items()}
+        h0 = obs.host_now() if obs is not None else 0.0
         newp_s, eff_s, _ = local_update(one, d_i, gen, ev, clients=[i])
         newp, eff_grad = stacked_index(newp_s, 0), stacked_index(eff_s, 0)
+        if obs is not None:
+            # sim span: the client's whole local round ended at t_now
+            obs.local_update(t_now, t_now, h0, client=i)
 
         # the policy's declared inputs, computed as size-1 stacked calls
         value = norm = None
@@ -106,9 +170,12 @@ def run_event_driven(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
         thr = policy.window_threshold(lambda: _tree_delta(prev_global, prev_prev_global))
         if policy.reports:
             comm.record_report(1)
+            if obs is not None:
+                obs.report(i, t_now)
         upload = policy.decide(i, value, norm, thr)
 
         if upload:
+            p0 = comm.upload_payload_bytes
             if codec.is_identity:
                 recon = newp
                 comm.record_upload(1)
@@ -116,8 +183,11 @@ def run_event_driven(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
                 # ship codec(delta vs the model this client downloaded);
                 # the server mixes the reconstruction it actually received
                 recon = _compressed_upload(codec, ef, comm, client_params[i], newp, i,
-                                           _enc_seed(run_cfg, ev, i, _UPLOAD))
+                                           _enc_seed(run_cfg, ev, i, _UPLOAD), obs=obs)
             staleness = server_version - model_version[i]
+            if obs is not None:
+                obs.upload(i, t_now, staleness=int(staleness),
+                           nbytes=comm.upload_payload_bytes - p0, codec=codec.name)
             s = aggregator.stale_weight(staleness)
             prev_prev_global = prev_global
             prev_global = global_params
@@ -130,7 +200,11 @@ def run_event_driven(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
             comm.record_broadcast(1)
         else:
             client_params[i] = _compressed_broadcast(bcodec, comm, global_params, 1,
-                                                     _enc_seed(run_cfg, ev, i, _BROADCAST))
+                                                     _enc_seed(run_cfg, ev, i, _BROADCAST),
+                                                     obs=obs)
+        if obs is not None:
+            obs.broadcast(i, t_now, nbytes=comm.downlink_bytes - d0,
+                          codec=None if bcodec is None else bcodec.name)
         model_version[i] = server_version
         prev_grads[i] = eff_grad
         # the round's actual on-the-wire bytes (report + payload up, the
@@ -140,12 +214,17 @@ def run_event_driven(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
                        download_bytes=comm.downlink_bytes - d0)
 
         if (ev + 1) % run_cfg.events_per_eval == 0:
+            h0 = obs.host_now() if obs is not None else 0.0
             acc = float(evaluate_fn(global_params))
+            if obs is not None:
+                obs.eval_event(ev + 1, t_now, h0)
             records.append(RoundRecord(round=ev + 1, time=t_now, global_acc=acc,
                                        uploads_so_far=comm.model_uploads))
             if verbose:
-                print(f"[{run_cfg.algorithm}/event] ev {ev + 1:4d} t={t_now:8.1f} "
-                      f"acc={acc:.4f} uploads={comm.model_uploads}", flush=True)
+                progress(f"[{run_cfg.algorithm}/event] ev {ev + 1:4d} t={t_now:8.1f} "
+                         f"acc={acc:.4f} uploads={comm.model_uploads}")
+        if ckpt_every and (ev + 1) % ckpt_every == 0:
+            _save_ckpt(ev + 1)
 
     res = RunResult(run_cfg.algorithm, records, comm, run_cfg.target_acc).finalize_target()
-    return _attach_sim_result(res, sched)
+    return _finish_obs(_attach_sim_result(res, sched), obs)

@@ -1,8 +1,9 @@
 """Deterministic event-driven scheduler for asynchronous FL simulation.
-A copy of ``repro.core.scheduler`` (numpy only) without its obs hook,
-the batched engine's window API (``pop_window``, ``account_bytes``,
-``reactive``) included; the parity tests (tests/test_torch_sim.py,
-tests/test_torch_batched.py) keep it bit-identical to the original.
+A copy of ``repro.core.scheduler`` (numpy only), the batched engine's
+window API (``pop_window``, ``account_bytes``, ``reactive``) and its
+obs failure hook included; the parity tests (tests/test_torch_sim.py,
+tests/test_torch_batched.py, tests/test_torch_obs.py) keep it
+bit-identical to the original.
 
 The paper's asynchrony (Raspberry-Pi stragglers, network jitter) is
 modelled as deterministic service-time distributions and a
@@ -98,10 +99,13 @@ class EventScheduler:
     pre-scenario scheduler)."""
 
     def __init__(self, num_clients: int, speed: SpeedModel,
-                 network=None, availability=None):
+                 network=None, availability=None, obs=None):
         self.speed = speed
         self.network = network if _is_active(network) else None
         self.availability = availability if _is_active(availability) else None
+        # optional repro_torch.obs Observer: mid-round failures become
+        # trace events (the runtimes own every other hook site)
+        self.obs = obs
         self.heap: List[Event] = []
         self._seq = 0
         self.now = 0.0
@@ -163,6 +167,8 @@ class EventScheduler:
                 # the client goes again — clock and busy time advance,
                 # but no update (and no bytes) ever reach the server
                 self.client_failed_rounds[client] += 1
+                if self.obs is not None:
+                    self.obs.failure(client, t)
             self.busy_until[client] = t
         self._seq += 1
         heapq.heappush(self.heap, Event(t, self._seq, client))
@@ -220,9 +226,10 @@ class EventScheduler:
     def snapshot(self) -> dict:
         """The scheduler's full state as a pytree of numpy arrays: heap
         events, clocks, per-client accounting and every model's RNG
-        counters (checkpoint-resume is not ported yet: ROADMAP.md, queue 1
-        item 7).  Restoring into a scheduler built with the same models resumes
-        bit-deterministically (counter-based draws have no hidden RNG)."""
+        counters, as a run-state checkpoint stores it
+        (``repro_torch.checkpoint``).  Restoring into a scheduler built
+        with the same models resumes bit-deterministically
+        (counter-based draws have no hidden RNG)."""
         ev = sorted(self.heap)
         state = {
             "heap": {

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -73,11 +74,15 @@ def build(names=KERNELS) -> dict:
     """Compile every kernel in ``names`` that is not built yet, all
     ``nvcc`` processes at once; return each kernel's compiler log (the
     ``-Xptxas -v`` register and shared-memory report).  Raises with the
-    compiler's output if any build fails."""
+    compiler's output if any build fails.  Each finished build is
+    counted, with its seconds, by ``repro_torch.obs.compile_tracking``
+    (the ``jit_compiles`` gauge of an observed run)."""
+    from repro_torch.obs import compile_tracking
     require_hopper()
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
+    t0 = time.perf_counter()
     for name in names:
         src, so, log = _paths(name)
         if so.exists():
@@ -95,6 +100,7 @@ def build(names=KERNELS) -> dict:
             continue
         log.write_text(out)
         os.replace(tmp, so)   # atomic: a concurrent process never loads half a file
+        compile_tracking.record(time.perf_counter() - t0)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {name: _paths(name)[2].read_text() for name in names}

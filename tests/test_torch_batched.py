@@ -442,8 +442,7 @@ def test_batched_options_on_own_rng(data):
     assert [r.boundaries_crossed for r in wide.records] == [1, 2]
 
 
-@pytest.mark.parametrize("field,value", [("shard_clients", True), ("obs", True),
-                                         ("checkpoint_path", "x.ckpt")])
+@pytest.mark.parametrize("field,value", [("shard_clients", True)])
 def test_batched_rejects_unported_settings(data, field, value):
     fed = _fed(data)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -325,8 +325,7 @@ def _fed(data, **kw):
                       local=tclient.LocalSpec(**SPEC), **kw)
 
 
-@pytest.mark.parametrize("field,value", [("shard_clients", True), ("checkpoint_path", "x.ckpt"),
-                                         ("obs", True)])
+@pytest.mark.parametrize("field,value", [("shard_clients", True)])
 def test_event_mode_rejects_unported_settings(data, field, value):
     fed = _fed(data, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

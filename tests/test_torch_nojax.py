@@ -68,6 +68,10 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.bench.fl_common, repro_torch.bench.table3_ccr\n"
         "from repro_torch.compress import get_codec\n"
         "assert get_codec('int4').name == 'int4'\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.store\n"
+        "import repro_torch.obs, repro_torch.obs.live, repro_torch.obs.observer\n"
+        "from repro_torch.obs import Observer, ObsConfig\n"
+        "Observer(ObsConfig()).finish()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
