@@ -45,7 +45,19 @@ points.
    7 with the same CUDA kernels and synchronising runtime calls with obs
    on as off; a second identical run builds no kernel; ``torch_profile``
    writes a trace; seconds a window with obs off and on, in turns.
-7. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
+7. ``[fl-serve]``: ``Federation.serve`` on the same federation: the
+   sequential bridge (vafl, afl, fedasync) bit-equal to ``run(mode=
+   "event")`` with the same kernel launches; thread workers (vafl, afl:
+   events/s, the card's busy share, byte ledgers reconciled, one encode
+   an accepted upload); a bridge checkpoint resume; two tenants from one
+   ``MultiTenantServer``; then 7 threads x 20 concurrent encodes, each
+   bit-equal to the plain route of its input.  The event runs the
+   bridge is held against run before the phase's launch counts are set
+   to 0, so ``fl_serve_launches`` counts served runs alone.
+8. ``[figures]``: the paper's Fig. 4 (experiments a-d), Fig. 5/6 and
+   the value ablation (experiment d) at 3 rounds on the card, each
+   printing its CSV.
+9. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
    rwkv6_3b at their full published configurations (random weights from
    a seed): 4 prompts of 2048 tokens, 32 greedy tokens each (kernels
    flash_attention and linear_scan in the prefill), then a prefill of
@@ -72,8 +84,9 @@ before it is the card's name and power limit (``nvidia-smi``), and the
 line before that the per-kernel JSON (launches, max error, times,
 bound; ``event_*`` fields for the event path, ``batched_launches``
 for the batched engine, ``round_scenario_launches``,
-``checkpoint_launches`` and ``obs_launches`` for this slice's three
-paths).  It imports neither JAX nor the JAX package.
+``checkpoint_launches``, ``obs_launches``, ``fl_serve_launches`` and
+``figures_launches`` for the later paths).  It imports neither JAX
+nor the JAX package.
 """
 from __future__ import annotations
 
@@ -1564,6 +1577,260 @@ def phase_obs(whole):
             "window_syncs": readings[0][2]}
 
 
+FL_SERVE_BRIDGE = ("vafl", "afl", "fedasync")   # bridge runs held against run(mode="event")
+FL_SERVE_THREADS = ("vafl", "afl")              # thread-worker runs
+FL_SERVE_WAIT = dict(stall_timeout=120.0, recv_timeout=120.0)
+CONCURRENT = dict(threads=7, encodes=20)        # the concurrent-encode check
+
+
+def _served(cap, **kw):
+    """One ``Federation.serve`` of the captured main federation, timed
+    (synchronized) and with its kernel launches: (result, seconds,
+    grad_diff_norm launches, encode launches)."""
+    import torch
+    from repro_torch.kernels.grad_diff_norm import ops as gd_ops
+    from repro_torch.kernels.topk_quant import ops as tq_ops
+    cap.seen.clear()
+    g0, t0 = gd_ops.launches, tq_ops.launches
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    res = cap.fed.serve(**kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - h0, gd_ops.launches - g0, tq_ops.launches - t0
+
+
+def _concurrent_encodes() -> dict:
+    """7 host threads x 20 CNN-size topk_int8 encodes at once, as the
+    thread workers run them: each bit-equal to the plain route of its own
+    input, and the wrapper counting every call."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.kernels.topk_quant import ops as tq_ops
+    n_t, per = CONCURRENT["threads"], CONCURRENT["encodes"]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    trees = [[_encode_tree("cnn", "randn", gen) for _ in range(per)] for _ in range(n_t)]
+    leaves = [[[x for _, x in sorted(t.items())] for t in row] for row in trees]
+    want = [[tq_ops.encode_plain(torch.cat([x.reshape(-1) for x in ls]),
+                                 tq_ops.encode_k(0.1, sum(x.numel() for x in ls)),
+                                 1000 * t + j) for j, ls in enumerate(row)]
+            for t, row in enumerate(leaves)]
+    got = [[None] * per for _ in range(n_t)]
+    errors = []
+    barrier = threading.Barrier(n_t)
+    c0 = tq_ops.launches
+
+    def work(t):
+        try:
+            barrier.wait()
+            for j in range(per):
+                got[t][j] = tq_ops.topk_int8_encode(leaves[t][j], 0.1, 1000 * t + j)
+        except Exception as e:   # noqa: BLE001: reported below
+            errors.append(e)
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(n_t)]
+    h0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    secs = time.perf_counter() - h0
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"[fl-serve] concurrent encodes failed: {errors or 'a thread hung'}")
+    calls = tq_ops.launches - c0
+    if calls != n_t * per:
+        fail(f"[fl-serve] {n_t} x {per} concurrent encodes counted {calls} launches")
+    bad = sum(1 for t in range(n_t) for j in range(per)
+              if not (np.array_equal(got[t][j][0], want[t][j][0])
+                      and np.array_equal(got[t][j][1], want[t][j][1])
+                      and got[t][j][2] == want[t][j][2]))
+    if bad:
+        fail(f"[fl-serve] {bad} of {n_t * per} concurrent encodes differ from the plain route")
+    # what the wrappers' locks add to a call with no other thread about:
+    # one uncontended acquire and release of the encode's lock
+    reps = 100_000
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        with tq_ops._lock:
+            pass
+    lock_us = (time.perf_counter() - h0) / reps * 1e6
+    say(f"[fl-serve] {n_t} threads x {per} CNN-size topk_int8 encodes at once: all "
+        f"{n_t * per} bit-equal to the plain route (idx, val, scale), {calls} launches "
+        f"counted, {secs:.4f} s ({secs / (n_t * per) * 1e3:.4f} ms an encode); a wrapper "
+        f"lock's uncontended acquire and release {lock_us:.4f} us (host, {reps} pairs)")
+    return {"threads": n_t, "encodes": n_t * per, "seconds": secs, "lock_us": lock_us}
+
+
+def fl_serve_references():
+    """The references ``[fl-serve]``'s bridge is held against: the main
+    federation (the CNN, 7 clients, topk0.1_int8, on the card) and its
+    ``run(rounds=3, mode="event")`` for each of ``FL_SERVE_BRIDGE``, run
+    before the serve path's launch counts are set to 0 (the event path's
+    own launches are ``event_launches``).  Returns (the captured
+    federation, {algorithm: (result, final parameters, host seconds,
+    (grad_diff_norm, encode) launches)})."""
+    import torch
+    cap = _Captured(algo1_federation())
+    refs = {}
+    for alg in FL_SERVE_BRIDGE:
+        cap.seen.clear()
+        g0, t0 = _launch_pair()
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        ref = cap.fed.run(rounds=3, mode="event", algorithm=alg)
+        torch.cuda.synchronize()
+        ev_s = time.perf_counter() - h0
+        ev_l = tuple(b - a for a, b in zip((g0, t0), _launch_pair()))
+        refs[alg] = (ref, cap.final(), ev_s, ev_l)
+    return cap, refs
+
+
+def phase_fl_serve(cap, refs):
+    """``[fl-serve]``: ``Federation.serve`` on the main federation of
+    ``fl_serve_references``.  The sequential bridge for vafl, afl and
+    fedasync, each bit-equal to that federation's ``run(rounds=3,
+    mode="event")`` (parameters, records, CommStats, clock) with the same
+    kernel launches; thread workers for vafl and afl (the run ends, byte
+    ledgers reconcile with CommStats, one encode an accepted upload;
+    events/s, and the card's busy share of a profiled vafl round); a
+    bridge checkpoint resume of afl without error feedback, bit-equal;
+    two federations (afl, vafl) of one round each served from one
+    ``MultiTenantServer``.  Every launch in here is a served run's.
+    Returns the numbers of the ``[time]`` line; the concurrent-encode
+    check runs after the launch counts are read (``_concurrent_encodes``)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.serve import MultiTenantServer, launch_serving
+
+    fed = cap.fed
+    events = 3 * len(fed.data.counts)
+    out = {"bridge": {}, "threads": {}}
+    for alg in FL_SERVE_BRIDGE:
+        ref, ref_p, ev_s, ev_l = refs[alg]
+        res, sv_s, gd, tq = _served(cap, rounds=3, driver="sequential", algorithm=alg)
+        same = _everything(res) == _everything(ref) and _same_params(cap.final(), ref_p)
+        say(f"[fl-serve] bridge {alg}: serve(driver=\"sequential\") vs run(mode=\"event\"), "
+            f"3 rounds ({events} events): {'bit-equal' if same else 'DIFFERENT'} "
+            f"(parameters, records, CommStats, sim_time {res.sim_time:.6f}); uploads "
+            f"{res.comm.model_uploads}, launches grad_diff_norm {gd} vs {ev_l[0]}, topk_quant "
+            f"{tq} vs {ev_l[1]}; {sv_s / events:.4f} s an event served vs {ev_s / events:.4f} "
+            f"s in the event loop (host, synchronized)")
+        if not same:
+            fail(f"[fl-serve] the bridge's {alg} run differs from run(mode='event')")
+        if (gd, tq) != ev_l or tq != res.comm.model_uploads:
+            fail(f"[fl-serve] bridge {alg} launched ({gd}, {tq}), the event run {ev_l}, "
+                 f"for {res.comm.model_uploads} uploads")
+        if alg == "vafl" and gd != events:
+            fail(f"[fl-serve] bridge vafl launched grad_diff_norm {gd} times for {events} events")
+        out["bridge"][alg] = (sv_s / events, ev_s / events)
+    for alg in FL_SERVE_THREADS:
+        res, secs, gd, tq = _served(cap, rounds=3, algorithm=alg, **FL_SERVE_WAIT)
+        c = res.comm
+        ok = (c.broadcasts == events and sum(res.client_uplink_bytes) == c.uplink_bytes
+              and sum(res.client_downlink_bytes) == c.downlink_bytes
+              and tq == c.model_uploads and gd == (events if alg == "vafl" else 0))
+        say(f"[fl-serve] threads {alg}: 7 workers, {c.broadcasts} events, uploads "
+            f"{c.model_uploads}, reports {c.scalar_reports}, uplink bytes {c.uplink_bytes} "
+            f"(ledgers sum {sum(res.client_uplink_bytes)}), downlink {c.downlink_bytes} "
+            f"(sum {sum(res.client_downlink_bytes)}), launches grad_diff_norm {gd}, topk_quant "
+            f"{tq}; best acc {res.best_acc:.4f}; {secs:.4f} s, {events / secs:.3f} events/s")
+        if not ok:
+            fail(f"[fl-serve] the thread run of {alg} did not end whole or reconcile")
+        out["threads"][alg] = events / secs
+    share, kernels, wall, _ = busy_share(lambda: fed.serve(rounds=1, algorithm="vafl",
+                                                          **FL_SERVE_WAIT))
+    say(f"[fl-serve] one profiled thread-worker vafl run (7 events, torch.profiler): "
+        f"{kernels} CUDA kernels, device busy {share:.1%} of {wall:.4f} s")
+    out["busy"] = share
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/serve.ckpt"
+        kw = dict(rounds=3, driver="sequential", algorithm="afl", error_feedback=False)
+        ref, _, _, _ = _served(cap, **kw)
+        ref_p = cap.final()
+        _served(cap, checkpoint_path=path, checkpoint_every=10, **kw)
+        res, _, gd, tq = _served(cap, checkpoint_path=path, resume=True, **kw)
+        same = _everything(res) == _everything(ref) and _same_params(cap.final(), ref_p)
+        say(f"[fl-serve] bridge resume of afl (error_feedback=False) from event 20: "
+            f"{'bit-equal' if same else 'DIFFERENT'}, launches after it topk_quant {tq}")
+        if not same:
+            fail("[fl-serve] the bridge's afl resume differs from the whole run")
+    cb = dict(init_params_fn=fed.init_params_fn, loss_fn=fed.loss_fn, fed_data=fed.data,
+              evaluate_fn=fed.evaluate_fn, device="cuda", recv_timeout=120.0)
+    # two tenants of one round each (depth cut: the thread runs above
+    # took 13-15 s for 3 rounds)
+    sa, wa, ta = launch_serving(dataclasses.replace(fed.config, algorithm="afl", rounds=1),
+                                name="a", **cb)
+    sb, wb, tb = launch_serving(dataclasses.replace(fed.config, algorithm="vafl", rounds=1),
+                                name="b", **cb)
+    mt = MultiTenantServer([sa, sb])
+    h0 = time.perf_counter()
+    mt.start()
+    for w in wa + wb:
+        w.start()
+    try:
+        res_a, res_b = mt.run(stall_timeout=120.0)
+    finally:
+        for w in wa + wb:
+            w.stop()
+        for w in wa + wb:
+            w.join(timeout=30)
+        ta.close()
+        tb.close()
+    secs = time.perf_counter() - h0
+    say(f"[fl-serve] multi-tenant: afl and vafl served from one MultiTenantServer, 14 "
+        f"workers: events {res_a.comm.broadcasts} and {res_b.comm.broadcasts}, uploads "
+        f"{res_a.comm.model_uploads} and {res_b.comm.model_uploads}, {secs:.4f} s")
+    if (res_a.comm.broadcasts, res_b.comm.broadcasts) != (7, 7) or any(
+            w.error is not None or w.is_alive() for w in wa + wb):
+        fail("[fl-serve] a multi-tenant federation did not complete")
+    return out
+
+
+def _launch_pair():
+    from repro_torch.kernels.grad_diff_norm import ops as gd_ops
+    from repro_torch.kernels.topk_quant import ops as tq_ops
+    return gd_ops.launches, tq_ops.launches
+
+
+FIGURE_ROUNDS = 3
+
+
+def phase_figures():
+    """``[figures]``: the paper's Fig. 4 (experiments a-d), Fig. 5/6 and
+    the value ablation (experiment d) on the card at
+    ``BenchScale(rounds=3)``; each prints its CSV.  Fails on an accuracy
+    outside [0, 1] or a missing row."""
+    from repro_torch.bench import ablation_value, fig4_convergence, fig5_clients
+    from repro_torch.bench.fl_common import ALGS, EXPERIMENTS, BenchScale
+
+    secs = {}
+    h0 = time.perf_counter()
+    curves = fig4_convergence.run(scale=BenchScale(rounds=FIGURE_ROUNDS), device="cuda")
+    secs["fig4"] = time.perf_counter() - h0
+    if sorted(curves) != sorted((e, a) for e in EXPERIMENTS for a in ALGS) or any(
+            len(c) != FIGURE_ROUNDS or not all(0.0 <= acc <= 1.0 for _, acc in c)
+            for c in curves.values()):
+        fail("[figures] fig4_convergence: a curve is missing, short or out of [0, 1]")
+    h0 = time.perf_counter()
+    runs = fig5_clients.run(scale=BenchScale(rounds=FIGURE_ROUNDS), device="cuda")
+    secs["fig5"] = time.perf_counter() - h0
+    for exp, res in runs.items():
+        n = EXPERIMENTS[exp][0]
+        if len(res.records) != FIGURE_ROUNDS or any(
+                len(r.client_accs) != n or not all(0.0 <= a <= 1.0 for a in r.client_accs)
+                for r in res.records):
+            fail(f"[figures] fig5_clients {exp}: per-client accuracies missing or out of range")
+    h0 = time.perf_counter()
+    rows = ablation_value.run("d", BenchScale(samples_per_client=800, rounds=FIGURE_ROUNDS,
+                                              test_samples=800), device="cuda")
+    secs["ablation"] = time.perf_counter() - h0
+    if [r[0] for r in rows] != ["full", "no_acc", "no_diff", "random", "strong_acc"] or any(
+            not 0.0 <= r[2] <= 1.0 for r in rows):
+        fail(f"[figures] ablation_value rows {rows}")
+    say("[figures] host seconds (synchronized by each run's evaluations): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    return secs
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (src/repro_torch is missing)")
@@ -1611,12 +1878,26 @@ def main() -> None:
     obs = phase_obs(whole)
     obs_counts = read()                          # read just after the obs path
     mark("obs")
+    cap, refs = fl_serve_references()
+    read = _reset_launches()
+    fl_serve = phase_fl_serve(cap, refs)
+    fs_counts = read()                           # read just after the fl-serve path
+    fl_serve["concurrent"] = _concurrent_encodes()
+    mark("fl-serve")
+    read = _reset_launches()
+    figures = phase_figures()
+    fig_counts = read()                          # read just after the figures path
+    mark("figures")
     for what, counts in (("round-scenario", rs_counts), ("checkpoint", ck_counts),
-                         ("obs", obs_counts)):
+                         ("obs", obs_counts), ("fl-serve", fs_counts)):
         if counts["grad_diff_norm"] <= 0 or counts["topk_quant"] <= 0:
             fail(f"a kernel of the {what} path never launched: {counts}")
+    for what, counts in (("round-scenario", rs_counts), ("checkpoint", ck_counts),
+                         ("obs", obs_counts), ("fl-serve", fs_counts), ("figures", fig_counts)):
         if counts["flash_attention"] or counts["linear_scan"]:
             fail(f"the {what} path launched a serving kernel: {counts}")
+    if fig_counts["grad_diff_norm"] <= 0:
+        fail(f"the figures' vafl runs never launched grad_diff_norm: {fig_counts}")
     # rwkv6_3b's prefill-vs-decode check is gated in fp32: at bf16 the
     # random-weight stack's two paths drift apart with depth in the
     # reference as in the port (PERF.md §6; the bf16 gate at depth 2 is
@@ -1644,7 +1925,9 @@ def main() -> None:
                    batched_launches=b_gd,
                    round_scenario_launches=rs_counts["grad_diff_norm"],
                    checkpoint_launches=ck_counts["grad_diff_norm"],
-                   obs_launches=obs_counts["grad_diff_norm"])
+                   obs_launches=obs_counts["grad_diff_norm"],
+                   fl_serve_launches=fs_counts["grad_diff_norm"],
+                   figures_launches=fig_counts["grad_diff_norm"])
     # the topk_quant row times what the main path launches, the encode;
     # the elementwise entry (off the path, held against ref.topk_quant)
     # keeps its figures under elementwise_*
@@ -1658,7 +1941,9 @@ def main() -> None:
                    event_launches=ev_tq, batched_launches=b_tq,
                    round_scenario_launches=rs_counts["topk_quant"],
                    checkpoint_launches=ck_counts["topk_quant"],
-                   obs_launches=obs_counts["topk_quant"])
+                   obs_launches=obs_counts["topk_quant"],
+                   fl_serve_launches=fs_counts["topk_quant"],
+                   figures_launches=fig_counts["topk_quant"])
     main_fa = dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"],
                    tensor_core_instructions=sass["flash_attention"])
     main_ls = dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"],
@@ -1683,6 +1968,16 @@ def main() -> None:
         f"{obs['window_kernels']} and synchronising calls {obs['window_syncs']}, the same "
         f"either way; checkpoint: N={SCALE['clients']} bundle {ckpt['n256_bundle_bytes']} "
         f"bytes, SIGKILL resume from event {ckpt['killed_at_event']}")
+    br = fl_serve["bridge"]
+    say("[time] fl-serve (host clock, synchronized): bridge s an event served vs in the "
+        "event loop: " + ", ".join(f"{a} {s:.4f} vs {e:.4f}" for a, (s, e) in br.items())
+        + "; thread workers " + ", ".join(f"{a} {v:.3f} events/s"
+                                          for a, v in fl_serve["threads"].items())
+        + f", device busy {fl_serve['busy']:.1%} of a profiled vafl run; "
+        f"{fl_serve['concurrent']['encodes']} concurrent encodes in "
+        f"{fl_serve['concurrent']['seconds']:.4f} s, a lock pair "
+        f"{fl_serve['concurrent']['lock_us']:.4f} us; figures: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in figures.items()))
     for arch, row in (("starcoder2_3b", main_fa), ("rwkv6_3b", main_ls)):
         st = served[arch]
         share = st["launches"] * row["ms"] / 1e3 / st["prefill_s"]

@@ -23,9 +23,15 @@ import contextlib
 import ctypes
 import ctypes.util
 import functools
+import threading
 
 import numpy as np
 import torch
+
+
+_ieee_lock = threading.Lock()
+_ieee_depth = 0          # threads (and nested scopes) inside ieee()
+_ieee_restore = None     # the first entrant's ExitStack: restores the flags
 
 
 @contextlib.contextmanager
@@ -34,17 +40,33 @@ def ieee():
     convolutions in IEEE fp32 with deterministic algorithms, whatever the
     process-wide flags say: ``torch.set_float32_matmul_precision("high")``
     or cuDNN's ``allow_tf32``, which is on by default, would round their
-    inputs to TF32's 10-bit mantissa.  The flags are restored on exit.
-    Inert on the CPU."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
+    inputs to TF32's 10-bit mantissa.  Inert on the CPU.
+
+    The flags are process-wide, so the scope is reference-counted under
+    a lock: the first scope to enter, in any thread, saves them and sets
+    IEEE; the last one to leave restores them.  While any thread is
+    inside, no thread inside sees TF32, and the caller's setting comes
+    back once all have left."""
+    global _ieee_depth, _ieee_restore
+    with _ieee_lock:
+        if _ieee_depth == 0:
+            stack = contextlib.ExitStack()
+            prev = torch.get_float32_matmul_precision()
+            stack.callback(torch.set_float32_matmul_precision, prev)
+            torch.set_float32_matmul_precision("highest")
+            cudnn = torch.backends.cudnn
+            stack.enter_context(cudnn.flags(enabled=cudnn.enabled, benchmark=False,
+                                            deterministic=True, allow_tf32=False))
+            _ieee_restore = stack
+        _ieee_depth += 1
     try:
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
-                         allow_tf32=False):
-            yield
+        yield
     finally:
-        torch.set_float32_matmul_precision(prev)
+        with _ieee_lock:
+            _ieee_depth -= 1
+            if _ieee_depth == 0:
+                stack, _ieee_restore = _ieee_restore, None
+                stack.close()
 
 
 @functools.lru_cache(maxsize=None)

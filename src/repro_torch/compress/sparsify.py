@@ -2,9 +2,12 @@
 ``repro.compress.sparsify``.
 
 Keeps the k largest-magnitude entries of the flattened update and ships
-an int32 index plane + fp32 value plane.  ``torch.topk`` does not break
-ties in ``lax.top_k``'s order, so with tied magnitudes the index plane
-may differ from the reference's; the decoded tree and ``nbytes`` do not.
+an int32 index plane + fp32 value plane.  The k entries are the first
+k of a stable descending sort of |x|: ``lax.top_k``'s order, by
+magnitude and then lower index first, so under tied magnitudes the port
+keeps the same entries as the reference, in the same order
+(``torch.topk`` breaks ties otherwise, and at the k-th magnitude that
+keeps a different entry and decodes a different tree).
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ class TopKCodec(Codec):
     def encode(self, tree, *, seed: int = 0) -> Payload:
         flat, treedef, shapes, dtypes = flatten_tree(tree)
         n = int(flat.shape[0])
-        idx = torch.topk(torch.abs(flat), self.k_of(n)).indices
+        idx = torch.sort(torch.abs(flat), descending=True, stable=True).indices[:self.k_of(n)]
         planes = {"idx": idx.to(torch.int32).cpu().numpy(),
                   "val": flat[idx].cpu().numpy()}
         meta = {"treedef": treedef, "shapes": shapes, "dtypes": dtypes, "n": n,

@@ -1,6 +1,5 @@
 """``Federation``: the one-object public API for an FL experiment.  Port
-of ``repro.core.federation`` without ``serve`` (ROADMAP.md, queue 1
-item 9).
+of ``repro.core.federation``.
 
     from repro_torch.core.federation import Federation
 
@@ -8,6 +7,7 @@ item 9).
                      algorithm="vafl", compressor="topk0.1_int8",
                      scenario="mobile_fleet")
     result = fed.run(rounds=200, mode="round")     # or mode="event"
+    result = fed.serve(rounds=200)                 # the same, as a live service
 
 ``model`` is "mlp", "cnn", a ``(forward_fn, init_fn, model_cfg)``
 triple, or omitted when explicit ``init_params_fn``/``loss_fn``/
@@ -147,3 +147,35 @@ class Federation:
         if mode == "round":
             return run_round_based(cfg, **kw)
         return run_event_driven(cfg, speed=speed, **kw)
+
+    def serve(self, rounds: Optional[int] = None, *, transport="inproc",
+              driver: str = "thread", pace=None, speed=None, retry=None,
+              exchange_timeout: Optional[float] = None,
+              liveness_timeout: Optional[float] = None, stall_timeout: float = 60.0,
+              recv_timeout: float = 30.0, perm_fn=None, live=None, verbose: bool = False,
+              **overrides):
+        """Run the federation as a live service (``repro_torch.serve``) on
+        the federation's device: client workers push uploads through a
+        transport into a server hot loop driving the same algorithm
+        objects as ``run()``.  ``driver="sequential"`` is the determinism
+        bridge (bit-identical to ``run(mode="event")`` at
+        ``buffer_size=1``); ``transport`` is a registry name ("inproc")
+        or a ready ``Transport``.  ``retry``, ``exchange_timeout`` and
+        ``liveness_timeout`` are the resilience knobs, ``stall_timeout``
+        and ``recv_timeout`` bound the server's and the workers' waits;
+        all are forwarded to ``serve_run``.  ``live`` (the HTTP telemetry
+        plane) is not ported yet and raises when set."""
+        if "num_clients" in overrides:
+            raise ValueError("num_clients is fixed by the federation's data; it cannot be "
+                             "overridden per run")
+        if rounds is not None:
+            overrides["rounds"] = rounds
+        cfg = dataclasses.replace(self.config, **overrides) if overrides else self.config
+        from repro_torch.serve import serve_run
+        return serve_run(cfg, init_params_fn=self.init_params_fn, loss_fn=self.loss_fn,
+                         fed_data=self.data, evaluate_fn=self.evaluate_fn,
+                         client_eval_fn=self._client_eval_for(cfg), transport=transport,
+                         driver=driver, pace=pace, speed=speed, stall_timeout=stall_timeout,
+                         recv_timeout=recv_timeout, retry=retry,
+                         exchange_timeout=exchange_timeout, liveness_timeout=liveness_timeout,
+                         live=live, verbose=verbose, device=self.device, perm_fn=perm_fn)

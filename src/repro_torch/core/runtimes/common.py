@@ -197,8 +197,8 @@ def _round_broadcast(run_cfg, bcodec, comm, global_params, n, t, down_acc=None, 
 def _flush_reconstructions(aggregator, global_params, recons, stales):
     """Mix a buffer of reconstruction trees into the global model: the
     FedBuff-K commit for any engine holding materialised
-    reconstructions (in the reference, the serve loop's; its port is
-    ROADMAP queue 1 item 9).  A singleton buffer is the sequential per-arrival
+    reconstructions: the serve loop's buffer (``repro_torch.serve``'s
+    ``FLServer._flush``).  A singleton buffer is the sequential per-arrival
     mix bit for bit (``buffered_mix`` K=1 path); larger buffers take the
     aggregator's ``flush_mix`` so a plugin aggregator stays in charge of
     its own mixing."""

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 KERNELS = ("grad_diff_norm", "topk_quant", "flash_attention", "linear_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_build_lock = threading.Lock()   # one build at a time in a process (shared tmp names)
 
 
 def nvcc_path() -> str:
@@ -108,6 +110,9 @@ def build(names=KERNELS) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of one kernel, built on first use."""
-    build((name,))
-    return ctypes.CDLL(str(_paths(name)[1]))
+    """The loaded shared library of one kernel, built on first use (by
+    one thread: the others wait for it)."""
+    with _build_lock:
+        build((name,))
+        return ctypes.CDLL(str(_paths(name)[1]))
+

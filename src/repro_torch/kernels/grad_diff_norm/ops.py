@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -25,9 +26,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.grad_diff_norm import ref
 
 # wrapper calls that launched the kernel since the last reset (one CUDA
-# launch each; chip_smoke.py reads it to show that a run went through
-# the kernel)
+# launch each, counted under ``_lock``; chip_smoke.py reads it to show
+# that a run went through the kernel)
 launches = 0
+# held while a call uses the cached scratch: host threads that share a
+# card (the serve loop's client workers) must not hand one call's
+# partials and tickets to another, and ctypes releases the GIL during a
+# launch
+_lock = threading.Lock()
 
 MAX_LEAVES = 64          # the kernel's leaf table (csrc/grad_diff_norm.cu kMaxLeaves)
 _THREADS = 256
@@ -74,7 +80,7 @@ def _kernel():
 def _scratch_for(device, w: int, g: int):
     """Cached per device: W * G fp32 partials and W integer tickets,
     zero at rest (the kernel's last block of a row resets its ticket).
-    One stream at a time per device uses them."""
+    One stream at a time per device uses them, under ``_lock``."""
     parts, tickets = _scratch.get(device, (None, None))
     if parts is None or parts.numel() < w * g:
         parts = torch.empty(max(w * g, 1024), dtype=torch.float32, device=device)
@@ -119,7 +125,7 @@ def _launch(leaves_a, leaves_b):
     n = len(la)
     g = blocks_per_row(sum(numel))
     fn = _kernel()
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), _lock:
         parts, tickets = _scratch_for(device, w, g)
         out = torch.empty((w,), dtype=torch.float32, device=device)
         err = fn((ctypes.c_void_p * n)(*[x.data_ptr() for x in la]),
@@ -127,9 +133,9 @@ def _launch(leaves_a, leaves_b):
                  (ctypes.c_longlong * n)(*numel), n, _DTYPES[dtype], parts.data_ptr(),
                  out.data_ptr(), tickets.data_ptr(), w, g,
                  torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"grad_diff_norm kernel launch failed: CUDA error {err}")
-    launches += 1
+        if err != 0:
+            raise RuntimeError(f"grad_diff_norm kernel launch failed: CUDA error {err}")
+        launches += 1
     return out
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -32,6 +33,11 @@ from repro_torch.kernels.topk_quant import ref
 # topk_quant call and one per topk_int8_encode call on CUDA (chip_smoke.py
 # reads it to show that a run went through the kernels)
 launches = 0
+# held by ``topk_int8_encode`` from its launch through its last host
+# copy: another host thread's encode (the serve loop's client workers)
+# would overwrite the cached output bytes, and ctypes releases the GIL
+# during a launch
+_lock = threading.Lock()
 
 _THREADS = 256
 _MAX_BLOCKS = 132 * 8     # one full wave of 256-thread blocks on an H100
@@ -200,8 +206,8 @@ def candidate_capacity(n: int) -> int:
 def _scratch_for(device, n: int, blocks: int):
     """Cached per device: the output bytes (8 + 5 n) and the streaming
     route's scratch (its state, zero at rest; three words a block; the
-    candidates).  One stream at a time per device uses them; each call's
-    host copy ends before the next call is launched."""
+    candidates).  One stream at a time per device uses them;
+    ``topk_int8_encode`` holds ``_lock`` until its host copy has ended."""
     out, state = _scratch.get(device, (None, None))
     if out is None or out.numel() < 8 + 5 * n:
         out = torch.empty(8 + 5 * n, dtype=torch.uint8, device=device)
@@ -261,7 +267,9 @@ def _encode_table(leaves, frac: float):
 def encode_on_device(leaves, frac: float, seed: int):
     """The device half of ``topk_int8_encode`` on CUDA leaves: launches
     the encode and returns (device bytes [count | idx | val | scale], k)
-    without waiting for it."""
+    without waiting for it.  The bytes are the device's cached buffer,
+    which the next encode on the device overwrites, so this route is for
+    one host thread: ``topk_int8_encode`` is the one for many."""
     flat, n, k = _encode_table(leaves, frac)
     if flat[0].device.type != "cuda":
         raise RuntimeError(f"encode_on_device takes CUDA tensors, not {flat[0].device}")
@@ -276,10 +284,11 @@ def topk_int8_encode(leaves, frac: float, seed: int):
     flat, n, k = _encode_table(leaves, frac)
     if flat[0].device.type == "cpu":
         return encode_plain(torch.cat([x.reshape(-1) for x in flat]), k, seed)
-    out = _launch_encode(flat, n, k, seed)
-    # one copy of the expected k entries; a second only if ties kept more
-    host = _to_host(out, 8 + 5 * k)
-    nk = int(host[:4].view(np.int32)[0])
-    if nk > k:
-        host = _to_host(out, 8 + 5 * nk)
+    with _lock:
+        out = _launch_encode(flat, n, k, seed)
+        # one copy of the expected k entries; a second only if ties kept more
+        host = _to_host(out, 8 + 5 * k)
+        nk = int(host[:4].view(np.int32)[0])
+        if nk > k:
+            host = _to_host(out, 8 + 5 * nk)
     return _planes(host[4:], nk)

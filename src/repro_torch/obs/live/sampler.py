@@ -1,8 +1,7 @@
 """``MetricsSampler`` — a background thread turning the run-scoped
 ``MetricsRegistry`` into a bounded time series.  Copy of
 ``repro.obs.live.sampler``; the HTTP exposition and health probes that
-read it in the reference come with the serving port (ROADMAP.md, queue
-1 item 9).
+read it in the reference are ROADMAP.md queue 1 item 9b.
 
 Every ``interval`` seconds the sampler snapshots the registry (the same
 JSON-ready dict ``RunResult.metrics`` carries) and appends it to a ring

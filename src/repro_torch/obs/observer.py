@@ -62,8 +62,7 @@ class Observer:
         self._m_local_updates = m.counter("local_updates")
         self._m_flushes = m.counter("flushes")
         self._m_flush_k = m.hist("flush_k")
-        # serve-loop hooks (the reference's repro.serve, whose port is
-        # ROADMAP.md queue 1 item 9; docs/SERVING.md): depth of the
+        # serve-loop hooks (repro_torch.serve's FLServer): depth of the
         # live upload queue per drained window, and recv->commit latency
         # per committed update (both host-side, single clock domain)
         self._m_queue_depth = m.hist("queue_depth")
@@ -190,8 +189,8 @@ class Observer:
                               **({"kind": kind} if kind else {}))
 
     # ------------------------------------------- resilience hooks ---
-    # (the serve loop and resilience layer of ROADMAP.md queue 1 item 9,
-    # and the runtimes' checkpoints; docs/RESILIENCE.md): retry/dedup, liveness and
+    # (the serve loop, repro_torch.serve, the chaos transport of
+    # ROADMAP.md queue 1 item 9b, and the runtimes' checkpoints): retry/dedup, liveness and
     # checkpoint traffic.  Metrics-first like every other hook.
 
     def duplicate(self, client, sim):
@@ -237,7 +236,7 @@ class Observer:
 
     def alert(self, probe, status, *, value=None, detail=None):
         """A health-probe transition (the live probes, ROADMAP.md queue
-        1 item 9): the probe crossed into ``status`` ("warn"/"crit", or
+        1 item 9b): the probe crossed into ``status`` ("warn"/"crit", or
         back to "ok").
         Status names are a fixed three-element set — bounded metric
         cardinality by construction."""

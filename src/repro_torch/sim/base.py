@@ -46,8 +46,8 @@ STREAM_COMPUTE = 1     # service times
 STREAM_NETWORK = 2     # link jitter
 STREAM_AVAIL = 3       # dropout / failure coin flips
 STREAM_STATIC = 4      # per-client static attributes (base speeds, bw, phase)
-STREAM_FAULT = 5       # chaos-transport fault schedule (resilience, not ported yet)
-STREAM_RETRY = 6       # retry backoff jitter (resilience, not ported yet)
+STREAM_FAULT = 5       # chaos-transport fault schedule (resilience)
+STREAM_RETRY = 6       # retry backoff jitter (resilience)
 
 
 def _splitmix64(x: int) -> int:

@@ -13,6 +13,8 @@ other; they skip themselves (inside the ``cuda`` fixture) elsewhere:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_algo1_kernels.py
 """
+import threading
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -23,10 +25,11 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.compress.composed import TopKQuantCodec as JTopKQuantCodec  # noqa: E402
+from repro.compress.sparsify import TopKCodec as JTopKCodec  # noqa: E402
 from repro.kernels.topk_quant import ops as jtq_ops  # noqa: E402
 from repro_torch.common.pytree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.compress.composed import TopKQuantCodec  # noqa: E402
-from repro_torch.compress.sparsify import flatten_tree  # noqa: E402
+from repro_torch.compress.sparsify import TopKCodec, flatten_tree  # noqa: E402
 from repro_torch.core.client import LocalSpec  # noqa: E402
 from repro_torch.core.federation import Federation  # noqa: E402
 from repro_torch.data.partition import paper_noniid_partition  # noqa: E402
@@ -189,6 +192,54 @@ def test_codec_cpu_planes_vs_reference(kind):
             "negzero": kept < k}[kind]
 
 
+# ------------------------------------------- the topk<r> codec's ties ---
+
+def _topk_planes_and_tree(tree, frac):
+    """(idx, val, decoded leaves as fp32 numpy) of the reference's
+    ``TopKCodec`` and of the port's on the same tree."""
+    jc, tc = JTopKCodec(frac), TopKCodec(frac)
+    jtree = jax.tree.map(lambda x: jnp.asarray(x.float().numpy()).astype(
+        jnp.bfloat16) if x.dtype == torch.bfloat16 else jnp.asarray(x.numpy()), tree)
+    jp, tp = jc.encode(jtree), tc.encode(tree)
+    jdec = [np.asarray(x.astype(jnp.float32)) for x in jax.tree.leaves(jc.decode(jp))]
+    tdec = [x.float().numpy() for x in tree_leaves(tc.decode(tp))]
+    return (jp.planes["idx"], jp.planes["val"], jdec), (tp.planes["idx"], tp.planes["val"], tdec)
+
+
+def _assert_same_topk(want, got):
+    for a, b in zip(want[:2], got[:2]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(want[2], got[2]):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+def test_topk_ties_smallest_input():
+    """A tie at the k-th magnitude: lax.top_k keeps the lower index."""
+    want, got = _topk_planes_and_tree({"w": torch.tensor([1.0, 2.0, -2.0, 3.0])}, 0.5)
+    assert got[0].tolist() == [3, 1] and got[2][0].tolist() == [0, 2, 0, 3]
+    _assert_same_topk(want, got)
+
+
+@pytest.mark.parametrize("seed", range(50))
+def test_topk_ties_small_integers_vs_reference(seed):
+    """Small-integer updates tie at every magnitude (torch.topk kept other
+    entries in 200 of 200 such vectors)."""
+    rng = np.random.RandomState(seed)
+    tree = {"a": torch.from_numpy(rng.randint(-5, 6, size=(30, 20)).astype(np.float32)),
+            "b": torch.from_numpy(rng.randint(-5, 6, size=400).astype(np.float32))}
+    _assert_same_topk(*_topk_planes_and_tree(tree, 0.1))
+
+
+def test_topk_ties_bf16_leaf_vs_reference():
+    """bf16 randn rounds to few distinct magnitudes: ties in a 4,096-entry
+    leaf beside an fp32 one."""
+    g = torch.Generator().manual_seed(3)
+    tree = {"w": torch.randn(64, 64, generator=g).to(torch.bfloat16),
+            "b": torch.randn(10, generator=g)}
+    _assert_same_topk(*_topk_planes_and_tree(tree, 0.1))
+
+
 # ------------------------------------------------------------ on the card ---
 
 @pytest.fixture
@@ -317,3 +368,70 @@ def test_gpu_algorithm1_reproducible_from_a_seed(cuda):
         assert sel0 == sel1 and comm0 == comm1, alg
         assert all(torch.equal(a, b) for a, b in zip(p0, p1)), alg
     assert (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) == flags
+
+
+@pytest.mark.gpu
+def test_gpu_topk_ties_card_route_matches_cpu(cuda):
+    """The topk<r> codec's stable sort on the card keeps the CPU route's
+    entries, in its order, on tie-heavy and bf16 trees."""
+    rng = np.random.RandomState(0)
+    g = torch.Generator().manual_seed(3)
+    trees = [{"w": torch.tensor([1.0, 2.0, -2.0, 3.0])},
+             {"a": torch.from_numpy(rng.randint(-5, 6, size=(300, 20)).astype(np.float32))},
+             {"w": torch.randn(64, 64, generator=g).to(torch.bfloat16)},
+             from_jax_params(split(inputs("ties", 42698, seed=1), CNN_SHAPES))]
+    for tree in trees:
+        codec = TopKCodec(0.1 if len(tree_leaves(tree)[0]) > 4 else 0.5)
+        want = codec.encode(tree)
+        got = codec.encode(tree_map(lambda x: x.to(cuda), tree))
+        np.testing.assert_array_equal(got.planes["idx"], want.planes["idx"])
+        np.testing.assert_array_equal(got.planes["val"], want.planes["val"])
+        for a, b in zip(tree_leaves(codec.decode(want)), tree_leaves(codec.decode(got))):
+            assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+def test_gpu_concurrent_encodes_and_norms_bitexact(cuda):
+    """7 host threads, as the serve loop's thread workers, each running 20
+    CNN-size topk_int8 encodes and tree norms at once: every result equals
+    the plain route on its own input, and each wrapper counts every
+    launch (each wrapper holds its module's lock over its scratch)."""
+    threads_n, per = 7, 20
+    trees = [[tree_map(lambda x: x.to(cuda), from_jax_params(split(
+        inputs("randn", 42698, seed=100 * t + j), CNN_SHAPES))) for j in range(per)]
+        for t in range(threads_n)]
+    want = [[TopKQuantCodec(0.1, use_kernel=False).encode(x, seed=1000 * t + j)
+             for j, x in enumerate(row)] for t, row in enumerate(trees)]
+    stacked = [[tree_map(lambda x: torch.stack([x, 0.5 * x]), x) for x in row] for row in trees]
+    zero = [[tree_map(torch.zeros_like, x) for x in row] for row in stacked]
+    norms_want = [[gd_ref.grad_diff_sq_norm_2d(gd_ops.flatten_stacked(a),
+                                               gd_ops.flatten_stacked(b))
+                   for a, b in zip(ra, rb)] for ra, rb in zip(stacked, zero)]
+    got = [[None] * per for _ in range(threads_n)]
+    norms = [[None] * per for _ in range(threads_n)]
+    errors = []
+    start = threading.Barrier(threads_n)
+    t0, g0 = tq_ops.launches, gd_ops.launches
+
+    def work(t):
+        try:
+            start.wait()
+            for j in range(per):
+                got[t][j] = TopKQuantCodec(0.1).encode(trees[t][j], seed=1000 * t + j)
+                norms[t][j] = gd_ops.tree_grad_diff_sq_norm(stacked[t][j], zero[t][j]).cpu()
+        except Exception as e:   # noqa: BLE001: reported below
+            errors.append(e)
+    workers = [threading.Thread(target=work, args=(t,)) for t in range(threads_n)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=120)
+    assert not errors, errors
+    assert tq_ops.launches - t0 == threads_n * per
+    assert gd_ops.launches - g0 == threads_n * per
+    for t in range(threads_n):
+        for j in range(per):
+            for plane in ("idx", "val"):
+                np.testing.assert_array_equal(got[t][j].planes[plane], want[t][j].planes[plane])
+            assert got[t][j].meta["scale"] == want[t][j].meta["scale"]
+            torch.testing.assert_close(norms[t][j], norms_want[t][j].cpu(), rtol=1e-5, atol=0)

@@ -12,6 +12,7 @@ import numpy as np  # noqa: E402
 
 from repro.core import client as jclient  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
+from repro_torch.common import fp32  # noqa: E402
 from repro_torch.common.pytree import tree_leaves  # noqa: E402
 from repro_torch.core import client as tclient  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
@@ -203,6 +204,61 @@ def test_card_route_forward_and_update_match_reference(monkeypatch):
     card = upd(stacked, data, torch.Generator().manual_seed(1), 0)[0]
     for a, b in zip(tree_leaves(plain), tree_leaves(card)):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+def test_ieee_scope_is_shared_across_threads():
+    """Two threads whose ieee() scopes interleave (A enters, B enters, A
+    leaves, B leaves), with the caller at "high": neither sees TF32
+    while inside, and the caller's setting is back after both left.
+    (With save-and-restore per scope, B read "high" after A left and the
+    process was left at "highest".)"""
+    import threading
+    cudnn = torch.backends.cudnn
+
+    def flags():
+        return (torch.get_float32_matmul_precision(), cudnn.allow_tf32, cudnn.deterministic)
+
+    a_in, b_in, a_out = threading.Event(), threading.Event(), threading.Event()
+    seen, errors = {}, []
+
+    def thread_a():
+        try:
+            with fp32.ieee():
+                seen["a"] = flags()
+                a_in.set()
+                assert b_in.wait(10)
+        except Exception as e:   # noqa: BLE001: reported below
+            errors.append(e)
+        finally:
+            a_out.set()
+
+    def thread_b():
+        try:
+            assert a_in.wait(10)
+            with fp32.ieee():
+                seen["b"] = flags()
+                b_in.set()
+                assert a_out.wait(10)
+                seen["b after a left"] = flags()
+        except Exception as e:   # noqa: BLE001: reported below
+            errors.append(e)
+
+    prev = torch.get_float32_matmul_precision()
+    prev_tf32 = cudnn.allow_tf32
+    try:
+        torch.set_float32_matmul_precision("high")
+        cudnn.allow_tf32 = True
+        threads = [threading.Thread(target=f) for f in (thread_a, thread_b)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not errors, errors
+        assert seen == {k: ("highest", False, True) for k in ("a", "b", "b after a left")}
+        assert flags()[:2] == ("high", True)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+        cudnn.allow_tf32 = prev_tf32
 
 
 def test_model_runs_in_ieee_fp32_whatever_the_flags(monkeypatch):

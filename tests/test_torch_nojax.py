@@ -72,6 +72,16 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.obs, repro_torch.obs.live, repro_torch.obs.observer\n"
         "from repro_torch.obs import Observer, ObsConfig\n"
         "Observer(ObsConfig()).finish()\n"
+        "import repro_torch.serve, repro_torch.serve.server, repro_torch.serve.client\n"
+        "import repro_torch.serve.run, repro_torch.serve.multitenant\n"
+        "import repro_torch.resilience, repro_torch.core.server\n"
+        "import repro_torch.bench.fig4_convergence, repro_torch.bench.fig5_clients\n"
+        "import repro_torch.bench.ablation_value\n"
+        "import repro_torch.examples.quickstart, repro_torch.examples.fl_mnist_vafl\n"
+        "from repro_torch.serve import available_transports, get_transport\n"
+        "assert available_transports() == ('inproc',)\n"
+        "from repro_torch.core import ALGORITHMS\n"
+        "assert 'vafl' in ALGORITHMS\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
