@@ -54,10 +54,24 @@ points.
    bit-equal to the plain route of its input.  The event runs the
    bridge is held against run before the phase's launch counts are set
    to 0, so ``fl_serve_launches`` counts served runs alone.
-8. ``[figures]``: the paper's Fig. 4 (experiments a-d), Fig. 5/6 and
+8. ``[fl-wire]``: the same federation served over the wire and its
+   faults, 2 rounds a run: the bridge over TCP (``transport="socket"``,
+   vafl and afl) bit-equal to ``run(mode="event")`` with the same
+   launches; thread workers over ``socket`` (vafl: events/s, busy share,
+   ledgers); seven ``spawn``ed process workers computing on the card
+   over ``socket`` (afl), each child counting its own encode launches
+   and sending them back on a queue (they sum to the accepted uploads;
+   ``fl_wire_child_launches``), the card's busy share from
+   ``nvidia-smi``; a process worker SIGKILLed after its first upload
+   (the server returns within its stall timeout); the chaos soak (afl,
+   thread workers, ``ChaosTransport`` over ``inproc`` and ``socket``:
+   the fault-free multiset committed, obs fault counters = the
+   transport's stats); the live HTTP plane on a vafl run (all four
+   endpoints mid-run, ``/clients`` = CommStats, ``/metrics`` parses).
+9. ``[figures]``: the paper's Fig. 4 (experiments a-d), Fig. 5/6 and
    the value ablation (experiment d) at 3 rounds on the card, each
    printing its CSV.
-9. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
+10. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
    rwkv6_3b at their full published configurations (random weights from
    a seed): 4 prompts of 2048 tokens, 32 greedy tokens each (kernels
    flash_attention and linear_scan in the prefill), then a prefill of
@@ -84,7 +98,8 @@ before it is the card's name and power limit (``nvidia-smi``), and the
 line before that the per-kernel JSON (launches, max error, times,
 bound; ``event_*`` fields for the event path, ``batched_launches``
 for the batched engine, ``round_scenario_launches``,
-``checkpoint_launches``, ``obs_launches``, ``fl_serve_launches`` and
+``checkpoint_launches``, ``obs_launches``, ``fl_serve_launches``,
+``fl_wire_launches``, ``fl_wire_child_launches`` and
 ``figures_launches`` for the later paths).  It imports neither JAX
 nor the JAX package.
 """
@@ -1791,6 +1806,426 @@ def _launch_pair():
     return gd_ops.launches, tq_ops.launches
 
 
+FL_WIRE_ROUNDS = 2                               # every [fl-wire] run: 14 events
+FL_WIRE_BRIDGE = ("vafl", "afl")                 # the bridge over TCP, held against the event run
+FL_WIRE_STALL = 3.0                              # stall timeout after the SIGKILL
+FL_WIRE_CHAOS = dict(drop=0.15, duplicate=0.1, reorder=0.1, blackout=0.03, blackout_s=0.3,
+                     seed=11)
+FL_WIRE_RETRY = dict(max_attempts=8, attempt_timeout_s=0.5, base_s=0.02, max_backoff_s=0.25,
+                     seed=11)
+PROM_LINE = r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"' \
+            r'(,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*")*\})? (-?[0-9.e+-]+|[+-]Inf|NaN)$'
+
+
+def counting_client(q, root, host, port, client, forward_fn, model_cfg, local, images, labels,
+                    mask, rounds, pace_seed, device, recv_timeout=30.0):
+    """A spawned process worker that reports what it did: it runs
+    ``repro_torch.serve.client._process_client_main`` (the body of a
+    ``ProcessClientWorker`` child) and then puts on ``q`` its kernel
+    launches, kernel builds, device, peak device memory and whether any
+    module of JAX or of its package was loaded.  Launch counts live in
+    each process, so the parent cannot read a child's."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+    from repro_torch.kernels.grad_diff_norm import ops as gd_ops
+    from repro_torch.kernels.topk_quant import ops as tq_ops
+    from repro_torch.obs import compile_tracking
+    from repro_torch.serve.client import _process_client_main
+    h0 = time.perf_counter()
+    done = _process_client_main(host, port, client, forward_fn, model_cfg, local, images, labels,
+                                mask, rounds, pace_seed, device, recv_timeout)
+    on_card = torch.device(device).type == "cuda"
+    q.put({"client": client, "rounds": done, "device": torch.device(device).type,
+           "topk_quant": tq_ops.launches, "grad_diff_norm": gd_ops.launches,
+           "builds": compile_tracking.compile_count(), "seconds": time.perf_counter() - h0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+           "jax_free": not [m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "jaxlib", "repro")]})
+
+
+class _SmiUtilization:
+    """``nvidia-smi``'s utilization.gpu sampled every 100 ms while a block
+    runs: the share of each sample period in which any process's kernel
+    ran on the card, the one reading that sees every process's contexts.
+    ``mean`` is None when the card reports no number."""
+
+    def __enter__(self):
+        self._p = subprocess.Popen(["nvidia-smi", "--query-gpu=utilization.gpu",
+                                    "--format=csv,noheader,nounits", "-lms", "100"],
+                                   stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self._p.terminate()
+        try:
+            out, _ = self._p.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self._p.kill()
+            out, _ = self._p.communicate()
+        vals = []
+        for line in out.splitlines():
+            try:
+                vals.append(float(line.strip()))
+            except ValueError:
+                pass
+        self.samples = len(vals)
+        self.mean = sum(vals) / len(vals) / 100 if vals else None
+        return False
+
+
+def _share(x) -> str:
+    return "not measured (nvidia-smi gave no number)" if x is None else f"{x:.1%}"
+
+
+def fl_wire_references(cap):
+    """``run(rounds=2, mode="event")`` of the main federation for each of
+    ``FL_WIRE_BRIDGE``, run before ``[fl-wire]``'s launch counts are set
+    to 0: {algorithm: (result, final parameters, (grad_diff_norm, encode)
+    launches)}."""
+    refs = {}
+    for alg in FL_WIRE_BRIDGE:
+        cap.seen.clear()
+        g0, t0 = _launch_pair()
+        ref = cap.fed.run(rounds=FL_WIRE_ROUNDS, mode="event", algorithm=alg)
+        refs[alg] = (ref, cap.final(), tuple(b - a for a, b in zip((g0, t0), _launch_pair())))
+    return refs
+
+
+def _wire_lap(fed, cfg, transport, **kw):
+    """One thread-worker run of ``cfg`` over ``transport`` through
+    ``launch_serving``, timed and with its launches and retries:
+    (server, result, seconds, grad_diff_norm launches, encode launches,
+    the fleet's retries)."""
+    import torch
+    from repro_torch.serve import launch_serving
+    server, workers, tr = launch_serving(
+        cfg, init_params_fn=fed.init_params_fn, loss_fn=fed.loss_fn, fed_data=fed.data,
+        evaluate_fn=fed.evaluate_fn, transport=transport, device="cuda", recv_timeout=120.0,
+        **kw)
+    g0, t0 = _launch_pair()
+    h0 = time.perf_counter()
+    try:
+        server.start()
+        for w in workers:
+            w.start()
+        res = server.run(stall_timeout=120.0)
+        for w in workers:
+            w.stop()
+        for w in workers:
+            w.join(timeout=60)
+        server.absorb_client_stats(workers)
+        res = server.finalize()
+    finally:
+        tr.close()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - h0
+    if any(w.error is not None or w.is_alive() for w in workers):
+        fail(f"[fl-wire] a thread worker failed or hung: {[w.error for w in workers]}")
+    g1, t1 = _launch_pair()
+    return server, res, secs, g1 - g0, t1 - t0, sum(w.stats["retries"] for w in workers)
+
+
+def _process_fleet(fed, cfg) -> dict:
+    """Seven process workers (``counting_client``) on the card over the
+    socket transport for ``cfg``: every child's encode launches there,
+    the children's launches sum to the server's accepted uploads, and the
+    byte ledgers reconcile.  The children start together: each waits
+    for its init broadcast (up to ``KILL_TIMEOUT_S``), which the server
+    sends once every child holds its CUDA context and is connected, and
+    the clock starts there."""
+    import multiprocessing
+    import numpy as np
+    import torch
+    from repro_torch.models.cnn import CNNConfig, cnn_forward
+    from repro_torch.serve import FLServer
+    from repro_torch.serve.socket_transport import SocketTransport
+    n = cfg.num_clients
+    tr = SocketTransport(n, device="cuda")
+    server = FLServer(cfg, init_params_fn=fed.init_params_fn, evaluate_fn=fed.evaluate_fn,
+                      transport=tr, device="cuda")
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    host, port = tr.address
+    d = fed.data
+    procs = [ctx.Process(target=counting_client, args=(
+        q, str(ROOT), host, port, i, cnn_forward, CNNConfig(), cfg.local,
+        *(np.asarray(x[i:i + 1]) for x in (d.images, d.labels, d.mask)), None, None, "cuda",
+        KILL_TIMEOUT_S))
+        for i in range(n)]
+    h_spawn = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        while len(tr._conns) < n:        # each child connects once its context is up
+            if not all(p.is_alive() for p in procs):
+                fail(f"[fl-wire] a process worker exited before connecting: "
+                     f"{[p.exitcode for p in procs]}")
+            if time.perf_counter() - h_spawn > KILL_TIMEOUT_S:
+                fail(f"[fl-wire] process workers not connected within {KILL_TIMEOUT_S} s")
+            time.sleep(0.01)
+        ready = time.perf_counter() - h_spawn
+        u0 = torch.cuda.max_memory_allocated()
+        with _SmiUtilization() as smi:
+            h0 = time.perf_counter()
+            server.start()
+            res = server.run(stall_timeout=120.0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - h0
+        counts = sorted((q.get(timeout=120) for _ in procs), key=lambda c: c["client"])
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        tr.close()
+    c = res.comm
+    child_tq = sum(x["topk_quant"] for x in counts)
+    say(f"[fl-wire] process workers afl: {n} spawned children on the card over TCP, connected "
+        f"{ready:.2f} s after the spawn; {c.broadcasts} events, uploads {c.model_uploads}, "
+        f"accepted by client {[int(a) for a in server.accepted_by_client]}; the children's "
+        f"encode launches {[x['topk_quant'] for x in counts]} (sum {child_tq}), grad_diff_norm "
+        f"{[x['grad_diff_norm'] for x in counts]}, kernel builds {[x['builds'] for x in counts]}, "
+        f"peak device memory GB {[round(x['peak_gb'], 4) for x in counts]} (the server's "
+        f"process {u0 / 1e9:.4f}), devices {sorted({x['device'] for x in counts})}, JAX-free "
+        f"{all(x['jax_free'] for x in counts)}; uplink bytes {c.uplink_bytes} (ledgers sum "
+        f"{sum(res.client_uplink_bytes)}), downlink {c.downlink_bytes} (sum "
+        f"{sum(res.client_downlink_bytes)}); {secs:.4f} s from start(), "
+        f"{c.broadcasts / secs:.3f} events/s; card busy {_share(smi.mean)} "
+        f"({smi.samples} nvidia-smi samples)")
+    if ([p.exitcode for p in procs] != [0] * n or c.broadcasts != FL_WIRE_ROUNDS * n
+            or [x["rounds"] for x in counts] != [FL_WIRE_ROUNDS] * n):
+        fail(f"[fl-wire] the process fleet did not end whole: exit codes "
+             f"{[p.exitcode for p in procs]}, rounds {[x['rounds'] for x in counts]}")
+    if (any(x["topk_quant"] <= 0 or x["device"] != "cuda" for x in counts)
+            or child_tq != c.model_uploads or sum(server.accepted_by_client) != c.model_uploads):
+        fail(f"[fl-wire] children's encode launches {[x['topk_quant'] for x in counts]} against "
+             f"{c.model_uploads} accepted uploads")
+    if not all(x["jax_free"] for x in counts):
+        fail("[fl-wire] a process worker imported JAX or the JAX package")
+    if (sum(res.client_uplink_bytes) != c.uplink_bytes
+            or sum(res.client_downlink_bytes) != c.downlink_bytes):
+        fail("[fl-wire] the process fleet's byte ledgers do not reconcile with CommStats")
+    return {"events_per_s": c.broadcasts / secs, "busy": smi.mean, "child_launches": child_tq,
+            "builds": sum(x["builds"] for x in counts),
+            "peak_gb": max(x["peak_gb"] for x in counts)}
+
+
+def _killed_worker(fed, cfg) -> dict:
+    """A ``ProcessClientWorker`` on the card SIGKILLed after its first
+    upload: the server finishes within its stall timeout and its upload
+    count equals the events it processed."""
+    import dataclasses
+    from repro_torch.models.cnn import CNNConfig, cnn_forward
+    from repro_torch.serve import FLServer, ProcessClientWorker
+    from repro_torch.serve.socket_transport import SocketTransport
+    cfg = dataclasses.replace(cfg, rounds=10_000, events_per_eval=100_000)
+    tr = SocketTransport(cfg.num_clients, device="cuda")
+    server = FLServer(cfg, init_params_fn=fed.init_params_fn, evaluate_fn=fed.evaluate_fn,
+                      transport=tr, device="cuda")
+    worker = ProcessClientWorker(tr.address, 0, forward_fn=cnn_forward, model_cfg=CNNConfig(),
+                                 local=cfg.local, fed_data=fed.data, device="cuda")
+    try:
+        server.start()
+        worker.start()
+        h0 = time.perf_counter()
+        while server.processed < 1 and time.perf_counter() - h0 < KILL_TIMEOUT_S:
+            server.step(timeout=0.1)
+        if server.processed < 1:
+            fail("[fl-wire] the process worker never delivered an upload")
+        worker.kill()
+        h1 = time.perf_counter()
+        res = server.run(stall_timeout=FL_WIRE_STALL)
+        secs = time.perf_counter() - h1
+        worker.join(timeout=30)
+    finally:
+        worker.kill()
+        tr.close()
+    say(f"[fl-wire] SIGKILL: a process worker on the card killed after its first upload "
+        f"(exit code {worker.exitcode}); the server processed {server.processed} events, "
+        f"uploads {res.comm.model_uploads}, and returned {secs:.3f} s after the kill "
+        f"(stall timeout {FL_WIRE_STALL} s)")
+    if (worker.exitcode is None or not 1 <= server.processed < server.total_events
+            or res.comm.model_uploads != server.processed or secs > FL_WIRE_STALL + 10):
+        fail("[fl-wire] the server did not finish cleanly after the SIGKILL")
+    return {"seconds": secs}
+
+
+def _chaos_soak(fed, cfg) -> dict:
+    """afl with thread workers: a fault-free lap, then ``ChaosTransport``
+    over ``inproc`` and over ``socket`` with the reference test's spec
+    and retry policy, obs on.  Each chaos lap commits the fault-free
+    multiset, the schedule fired, the obs fault counters equal the
+    transport's stats and the encode launched for every committed
+    upload."""
+    import dataclasses
+    from repro_torch.obs import ObsConfig
+    from repro_torch.resilience import ChaosTransport, FaultSpec, RetryPolicy
+    cfg = dataclasses.replace(cfg, obs=ObsConfig())
+    s0, r0, base_s, _, t0, _ = _wire_lap(fed, cfg, "inproc")
+    base = [int(a) for a in s0.accepted_by_client]
+    say(f"[fl-wire] chaos soak, fault-free lap (inproc): accepted by client {base}, "
+        f"{s0.processed} events, encode launches {t0}, {base_s:.4f} s")
+    out = {"fault_free_s": base_s}
+    for inner in ("inproc", "socket"):
+        chaos = ChaosTransport(cfg.num_clients, inner=inner, faults=FaultSpec(**FL_WIRE_CHAOS),
+                               device="cuda")
+        s1, r1, secs, _, tq, retries = _wire_lap(
+            fed, cfg, chaos, retry=RetryPolicy(**FL_WIRE_RETRY), exchange_timeout=30.0,
+            liveness_timeout=60.0)
+        got = [int(a) for a in s1.accepted_by_client]
+        c = r1.metrics["counters"]
+        injected = {k: v for k, v in chaos.stats.items() if k not in ("sent", "delivered") and v}
+        obs_ok = (all(c.get(f"chaos_faults_{k}", 0) == v for k, v in injected.items())
+                  and c.get("chaos_faults", 0) == sum(injected.values())
+                  and c.get("client_retries", 0) == retries)
+        say(f"[fl-wire] chaos soak over {inner}: accepted by client {got} "
+            f"({'the fault-free multiset' if got == base else 'DIFFERENT'}), {s1.processed} "
+            f"events, faults {injected}, sent {chaos.stats['sent']}, delivered "
+            f"{chaos.stats['delivered']}, retries {retries}, duplicates {s1.duplicates}, "
+            f"evictions {s1.evictions}, readmissions {s1.readmissions}; obs counters "
+            f"{'equal' if obs_ok else 'DIFFER from'} the transport's stats; encode launches {tq} "
+            f"for {r1.comm.model_uploads} committed uploads; {secs:.4f} s, "
+            f"{secs / base_s:.2f} x the fault-free lap")
+        if got != base or s1.processed != s0.processed:
+            fail(f"[fl-wire] the chaos lap over {inner} did not commit the fault-free multiset")
+        if not injected or ((chaos.stats["drop"] or chaos.stats["blackout"]) and retries <= 0):
+            fail(f"[fl-wire] the chaos schedule over {inner} never fired or nothing retried")
+        if not obs_ok or tq < r1.comm.model_uploads:
+            fail(f"[fl-wire] the chaos lap over {inner}: obs counters {c}, encode launches {tq}")
+        out[inner] = secs
+    return out
+
+
+def _live_plane(fed, cfg) -> dict:
+    """A thread-worker vafl run with obs on and the HTTP plane up: all four
+    endpoints answer while it runs, every line of ``/metrics`` parses, and
+    after the run ``/clients``' byte totals equal CommStats'."""
+    import dataclasses
+    import re
+    import threading
+    import urllib.request
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serve import launch_serving, resolve_live
+    cfg = dataclasses.replace(cfg, algorithm="vafl", obs=ObsConfig(sample_interval=0.05))
+    server, workers, tr = launch_serving(
+        cfg, init_params_fn=fed.init_params_fn, loss_fn=fed.loss_fn, fed_data=fed.data,
+        evaluate_fn=fed.evaluate_fn, device="cuda", recv_timeout=120.0)
+    plane = resolve_live(True, [server])
+    seen, stop = {}, threading.Event()
+
+    def get(path):
+        with urllib.request.urlopen(plane.url + path, timeout=10) as r:
+            return r.status, r.read().decode()
+
+    def scrape():
+        while not stop.is_set():
+            for path in ("/metrics", "/healthz", "/clients", "/trace?n=20"):
+                try:
+                    st, body = get(path)
+                    seen.setdefault(path, []).append(st)
+                    seen[path + " body"] = body
+                except OSError:
+                    pass
+            stop.wait(0.05)
+    poller = threading.Thread(target=scrape, daemon=True)
+    try:
+        poller.start()
+        server.start()
+        for w in workers:
+            w.start()
+        res = server.run(stall_timeout=120.0)
+        for w in workers:
+            w.stop()
+        for w in workers:
+            w.join(timeout=60)
+        stop.set()
+        poller.join(timeout=30)
+        _, body = get("/clients")
+        board = json.loads(body)
+        _, prom = get("/metrics")
+    finally:
+        stop.set()
+        plane.stop()
+        tr.close()
+    line = re.compile(PROM_LINE)
+    bad = [x for x in prom.splitlines() if not (x.startswith(("# HELP ", "# TYPE "))
+                                                or line.match(x))]
+    mid = {p: len(seen.get(p, [])) for p in ("/metrics", "/healthz", "/clients", "/trace?n=20")}
+    say(f"[fl-wire] live plane on a thread-worker vafl run: answers while running {mid}; "
+        f"/clients totals up {board['totals']['up_bytes']} down {board['totals']['down_bytes']} "
+        f"accepted {board['totals']['accepted_updates']} against CommStats "
+        f"{res.comm.uplink_bytes} / {res.comm.downlink_bytes} / {res.comm.model_uploads}; "
+        f"/metrics {len(prom.splitlines())} lines, {len(bad)} unparsed; health "
+        f"{json.loads(seen.get('/healthz body', '{}')).get('status')}")
+    if not all(mid.values()) or any(w.error is not None for w in workers):
+        fail(f"[fl-wire] the live plane did not answer mid-run: {mid}")
+    if (board["totals"]["up_bytes"], board["totals"]["down_bytes"],
+            board["totals"]["accepted_updates"]) != (res.comm.uplink_bytes,
+                                                     res.comm.downlink_bytes,
+                                                     res.comm.model_uploads):
+        fail("[fl-wire] /clients does not reconcile with CommStats")
+    if bad:
+        fail(f"[fl-wire] unparsable /metrics lines: {bad[:5]}")
+    return {"lines": len(prom.splitlines())}
+
+
+def phase_fl_wire(cap, refs, fl_serve) -> dict:
+    """``[fl-wire]``: the served federation over the wire and its faults,
+    2 rounds (14 events) a run: the bridge over TCP for vafl and afl
+    bit-equal to ``run(mode="event")`` with the same launches; thread
+    workers over ``socket`` (vafl); seven process workers on the card
+    over ``socket`` (afl), their launches counted in the children; a
+    process worker SIGKILLed after its first upload; the chaos soak over
+    ``inproc`` and ``socket``; the live HTTP plane.  Every launch counted
+    here is a served run's; the children's come back separately."""
+    import dataclasses
+    fed = cap.fed
+    n = len(fed.data.counts)
+    events = FL_WIRE_ROUNDS * n
+    out = {"bridge": {}}
+    for alg in FL_WIRE_BRIDGE:
+        ref, ref_p, ev_l = refs[alg]
+        res, secs, gd, tq = _served(cap, rounds=FL_WIRE_ROUNDS, driver="sequential",
+                                    algorithm=alg, transport="socket")
+        same = _everything(res) == _everything(ref) and _same_params(cap.final(), ref_p)
+        say(f"[fl-wire] bridge {alg} over socket: serve(driver=\"sequential\", "
+            f"transport=\"socket\") vs run(mode=\"event\"), {events} events: "
+            f"{'bit-equal' if same else 'DIFFERENT'} (parameters, records, CommStats, sim_time "
+            f"{res.sim_time:.6f}); uploads {res.comm.model_uploads}, launches grad_diff_norm "
+            f"{gd} vs {ev_l[0]}, topk_quant {tq} vs {ev_l[1]}; {secs / events:.4f} s an event")
+        if not same:
+            fail(f"[fl-wire] the bridge's {alg} run over socket differs from run(mode='event')")
+        if (gd, tq) != ev_l or tq != res.comm.model_uploads:
+            fail(f"[fl-wire] bridge {alg} over socket launched ({gd}, {tq}), the event run "
+                 f"{ev_l}")
+        out["bridge"][alg] = secs / events
+    base = dataclasses.replace(fed.config, rounds=FL_WIRE_ROUNDS)
+    res, secs, gd, tq = _served(cap, rounds=FL_WIRE_ROUNDS, algorithm="vafl", transport="socket",
+                                **FL_SERVE_WAIT)
+    c = res.comm
+    share, kernels, wall, _ = busy_share(lambda: fed.serve(rounds=1, algorithm="vafl",
+                                                          transport="socket", **FL_SERVE_WAIT))
+    say(f"[fl-wire] threads vafl over socket: 7 workers, {c.broadcasts} events, uploads "
+        f"{c.model_uploads}, reports {c.scalar_reports}, uplink bytes {c.uplink_bytes} (ledgers "
+        f"sum {sum(res.client_uplink_bytes)}), downlink {c.downlink_bytes} (sum "
+        f"{sum(res.client_downlink_bytes)}), launches grad_diff_norm {gd}, topk_quant {tq}; "
+        f"{secs:.4f} s, {events / secs:.3f} events/s ([fl-serve] inproc "
+        f"{fl_serve['threads']['vafl']:.3f}); a profiled 1-round run: {kernels} CUDA kernels, "
+        f"device busy {share:.1%} of {wall:.4f} s ([fl-serve] inproc {fl_serve['busy']:.1%})")
+    if (c.broadcasts != events or sum(res.client_uplink_bytes) != c.uplink_bytes
+            or sum(res.client_downlink_bytes) != c.downlink_bytes or tq != c.model_uploads
+            or gd != events):
+        fail("[fl-wire] the thread run over socket did not end whole or reconcile")
+    out["threads"] = {"events_per_s": events / secs, "busy": share}
+    out["process"] = _process_fleet(fed, dataclasses.replace(base, algorithm="afl"))
+    out["killed"] = _killed_worker(fed, dataclasses.replace(base, algorithm="afl"))
+    out["chaos"] = _chaos_soak(fed, dataclasses.replace(base, algorithm="afl"))
+    out["live"] = _live_plane(fed, base)
+    return out
+
+
 FIGURE_ROUNDS = 3
 
 
@@ -1884,16 +2319,22 @@ def main() -> None:
     fs_counts = read()                           # read just after the fl-serve path
     fl_serve["concurrent"] = _concurrent_encodes()
     mark("fl-serve")
+    wire_refs = fl_wire_references(cap)
+    read = _reset_launches()
+    fl_wire = phase_fl_wire(cap, wire_refs, fl_serve)
+    fw_counts = read()                           # read just after the fl-wire path
+    mark("fl-wire")
     read = _reset_launches()
     figures = phase_figures()
     fig_counts = read()                          # read just after the figures path
     mark("figures")
     for what, counts in (("round-scenario", rs_counts), ("checkpoint", ck_counts),
-                         ("obs", obs_counts), ("fl-serve", fs_counts)):
+                         ("obs", obs_counts), ("fl-serve", fs_counts), ("fl-wire", fw_counts)):
         if counts["grad_diff_norm"] <= 0 or counts["topk_quant"] <= 0:
             fail(f"a kernel of the {what} path never launched: {counts}")
     for what, counts in (("round-scenario", rs_counts), ("checkpoint", ck_counts),
-                         ("obs", obs_counts), ("fl-serve", fs_counts), ("figures", fig_counts)):
+                         ("obs", obs_counts), ("fl-serve", fs_counts), ("fl-wire", fw_counts),
+                         ("figures", fig_counts)):
         if counts["flash_attention"] or counts["linear_scan"]:
             fail(f"the {what} path launched a serving kernel: {counts}")
     if fig_counts["grad_diff_norm"] <= 0:
@@ -1927,6 +2368,7 @@ def main() -> None:
                    checkpoint_launches=ck_counts["grad_diff_norm"],
                    obs_launches=obs_counts["grad_diff_norm"],
                    fl_serve_launches=fs_counts["grad_diff_norm"],
+                   fl_wire_launches=fw_counts["grad_diff_norm"],
                    figures_launches=fig_counts["grad_diff_norm"])
     # the topk_quant row times what the main path launches, the encode;
     # the elementwise entry (off the path, held against ref.topk_quant)
@@ -1943,6 +2385,8 @@ def main() -> None:
                    checkpoint_launches=ck_counts["topk_quant"],
                    obs_launches=obs_counts["topk_quant"],
                    fl_serve_launches=fs_counts["topk_quant"],
+                   fl_wire_launches=fw_counts["topk_quant"],
+                   fl_wire_child_launches=fl_wire["process"]["child_launches"],
                    figures_launches=fig_counts["topk_quant"])
     main_fa = dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"],
                    tensor_core_instructions=sass["flash_attention"])
@@ -1978,6 +2422,18 @@ def main() -> None:
         f"{fl_serve['concurrent']['seconds']:.4f} s, a lock pair "
         f"{fl_serve['concurrent']['lock_us']:.4f} us; figures: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in figures.items()))
+    fp, fc = fl_wire["process"], fl_wire["chaos"]
+    say("[time] fl-wire (host clock, synchronized): bridge over socket s an event "
+        + ", ".join(f"{a} {v:.4f}" for a, v in fl_wire["bridge"].items())
+        + f"; thread vafl over socket {fl_wire['threads']['events_per_s']:.3f} events/s, busy "
+        f"{fl_wire['threads']['busy']:.1%} (inproc {fl_serve['threads']['vafl']:.3f}, "
+        f"{fl_serve['busy']:.1%}); 7 process workers afl {fp['events_per_s']:.3f} events/s "
+        f"(thread afl inproc {fl_serve['threads']['afl']:.3f}), card busy {_share(fp['busy'])}, "
+        f"a child's peak device memory {fp['peak_gb']:.4f} GB, kernel builds in children "
+        f"{fp['builds']}; SIGKILL to return {fl_wire['killed']['seconds']:.3f} s; chaos soak "
+        f"fault-free {fc['fault_free_s']:.4f} s, over inproc {fc['inproc']:.4f} s "
+        f"({fc['inproc'] / fc['fault_free_s']:.2f} x), over socket {fc['socket']:.4f} s "
+        f"({fc['socket'] / fc['fault_free_s']:.2f} x)")
     for arch, row in (("starcoder2_3b", main_fa), ("rwkv6_3b", main_ls)):
         st = served[arch]
         share = st["launches"] * row["ms"] / 1e3 / st["prefill_s"]

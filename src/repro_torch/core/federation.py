@@ -159,12 +159,13 @@ class Federation:
         transport into a server hot loop driving the same algorithm
         objects as ``run()``.  ``driver="sequential"`` is the determinism
         bridge (bit-identical to ``run(mode="event")`` at
-        ``buffer_size=1``); ``transport`` is a registry name ("inproc")
-        or a ready ``Transport``.  ``retry``, ``exchange_timeout`` and
-        ``liveness_timeout`` are the resilience knobs, ``stall_timeout``
-        and ``recv_timeout`` bound the server's and the workers' waits;
-        all are forwarded to ``serve_run``.  ``live`` (the HTTP telemetry
-        plane) is not ported yet and raises when set."""
+        ``buffer_size=1``); ``transport`` is a registry name ("inproc",
+        "socket", "chaos") or a ready ``Transport``.  ``retry``,
+        ``exchange_timeout`` and ``liveness_timeout`` are the resilience
+        knobs, ``stall_timeout`` and ``recv_timeout`` bound the server's
+        and the workers' waits; all are forwarded to ``serve_run``.
+        ``live`` turns on the HTTP telemetry plane (/metrics, /healthz,
+        /clients, /trace) for the run (thread driver only)."""
         if "num_clients" in overrides:
             raise ValueError("num_clients is fixed by the federation's data; it cannot be "
                              "overridden per run")

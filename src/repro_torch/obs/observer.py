@@ -189,9 +189,9 @@ class Observer:
                               **({"kind": kind} if kind else {}))
 
     # ------------------------------------------- resilience hooks ---
-    # (the serve loop, repro_torch.serve, the chaos transport of
-    # ROADMAP.md queue 1 item 9b, and the runtimes' checkpoints): retry/dedup, liveness and
-    # checkpoint traffic.  Metrics-first like every other hook.
+    # (the serve loop, repro_torch.serve, the chaos transport,
+    # repro_torch.resilience, and the runtimes' checkpoints): retry/dedup,
+    # liveness and checkpoint traffic.  Metrics-first like every other hook.
 
     def duplicate(self, client, sim):
         """A deduplicated upload: ``seq <= last_seq`` — a retry or a
@@ -235,9 +235,9 @@ class Observer:
         self.metrics.counter("client_retries").inc(n)
 
     def alert(self, probe, status, *, value=None, detail=None):
-        """A health-probe transition (the live probes, ROADMAP.md queue
-        1 item 9b): the probe crossed into ``status`` ("warn"/"crit", or
-        back to "ok").
+        """A health-probe transition (``repro_torch.obs.live.ProbeSet``):
+        the probe crossed into ``status`` ("warn"/"crit", or back to
+        "ok").
         Status names are a fixed three-element set — bounded metric
         cardinality by construction."""
         self.metrics.counter("alerts").inc()

@@ -1,6 +1,6 @@
 """Seeded, counter-based fault schedules for the chaos transport, and
 the clients' retry policy.  Port of ``repro.resilience.faults`` (numpy
-only, copied; the chaos transport itself is ROADMAP.md queue 1 item 9b).
+only, copied); ``repro_torch.resilience.chaos`` draws its fates here.
 
 A :class:`FaultSpec` declares per-frame fault *rates*; a
 :class:`FaultPlan` turns them into deterministic per-frame decisions

@@ -1,20 +1,21 @@
 """``repro_torch.serve``: the federation as a live service.  Port of
-``repro.serve`` with the in-process transport.
+``repro.serve``.
 
 The closed-loop runtimes simulate asynchrony; this package hosts it:
-client workers (threads) push versioned, compressed uploads through a
-pluggable transport into a server hot loop that drives the SAME
-algorithm, aggregator and codec objects and, through the determinism
-bridge (``driver="sequential"``, ``buffer_size=1``), gives results
-bit-identical to the simulation.
+client workers (threads or processes) push versioned, compressed
+uploads through a pluggable transport into a server hot loop that
+drives the SAME algorithm, aggregator and codec objects and, through
+the determinism bridge (``driver="sequential"``, ``buffer_size=1``),
+gives results bit-identical to the simulation.
 
     from repro_torch.serve import serve_run
     res = serve_run(cfg, init_params_fn=..., loss_fn=...,
                     fed_data=data, evaluate_fn=..., device="cuda")
 
 Transports live behind a string registry (``get_transport`` /
-``register_transport``).  The socket transport, process workers and the
-live telemetry plane are ROADMAP.md queue 1 item 9b.
+``register_transport``): ``inproc``, ``socket`` (``SocketTransport``,
+localhost TCP for ``ProcessClientWorker``) and ``chaos``
+(``repro_torch.resilience.ChaosTransport``).
 """
 from repro_torch.serve.client import (ClientCompute, ProcessClientWorker, ScenarioPacer,
                                       SequentialDriver, ThreadClientWorker)

@@ -1,8 +1,8 @@
 """Client workers: the other end of a serve transport.  Port of
 ``repro.serve.client``.
 
-Two drivers share one compute bundle (:class:`ClientCompute`, the same
-local update and Eq. 1 helpers the closed-loop runtimes use):
+Three drivers share one compute bundle (:class:`ClientCompute`, the
+same local update and Eq. 1 helpers the closed-loop runtimes use):
 
 * :class:`ThreadClientWorker`: a free-running thread per client: local
   round -> (report ->) upload -> download, repeatedly, optionally paced
@@ -21,8 +21,11 @@ local update and Eq. 1 helpers the closed-loop runtimes use):
   scheduler arithmetic: a ``buffer_size=1`` serve run through this
   driver is bit-identical to ``run(mode="event")``, on either device.
 
-The reference's third driver, ``ProcessClientWorker`` (an OS process
-over the socket transport), is ROADMAP.md queue 1 item 9b.
+* :class:`ProcessClientWorker`: a spawned OS process talking to a
+  ``socket`` transport, computing on its own device (a CUDA context of
+  its own unless the caller asks for the CPU).  Single-phase algorithms
+  only, as in the reference: the child has no eval set, so a policy that
+  reads Eq. 1 values raises ``ValueError`` in the child.
 
 Wire discipline shared by the drivers: ``seq`` increments on every
 message a client sends (the server dedups on it), and ``version``
@@ -30,6 +33,7 @@ echoes the last download.
 """
 from __future__ import annotations
 
+import multiprocessing
 import threading
 import time
 from types import SimpleNamespace
@@ -47,6 +51,7 @@ from repro_torch.core.runtimes.common import (_UPLOAD, _enc_seed, _event_helpers
                                               _value_fn)
 from repro_torch.serve import messages as wire
 from repro_torch.serve.messages import UploadMsg
+from repro_torch.serve.socket_transport import _SocketChannel
 from repro_torch.sim.base import _hash
 
 # the counter stream a thread worker's generator seed is drawn from (the
@@ -99,13 +104,15 @@ class ClientCompute:
                                            self._client_eval_fn, self._sq_diff)
         return self._helpers
 
-    def local_round(self, params, i, gen, step):
-        """One client's local round as a size-1 stacked call, drawing from
-        ``gen`` with ``step`` passed on to ``perm_fn``; returns (stacked
-        new params, stacked effective gradient)."""
+    def local_round(self, params, i, gen, step, client=None):
+        """One client's local round on data row ``i`` as a size-1 stacked
+        call, drawing from ``gen`` with ``step`` and ``client`` (default
+        ``i``) passed on to ``perm_fn``; returns (stacked new params,
+        stacked effective gradient)."""
         one = tree_broadcast(params, 1)
         d_i = {k: v[i:i + 1] for k, v in self.data.items()}
-        newp_s, eff_s, _ = self.local_update(one, d_i, gen, step, clients=[i])
+        newp_s, eff_s, _ = self.local_update(one, d_i, gen, step,
+                                             clients=[i if client is None else client])
         return newp_s, eff_s
 
     def value(self, newp_s, eff_s, prev_grad) -> float:
@@ -200,11 +207,13 @@ def _exchange(channel, msg, *, recv_timeout: float, stop=None, retry=None, stats
     return None
 
 
-def _client_loop(compute: ClientCompute, channel, client: int, *, pacer=None,
-                 rounds: Optional[int] = None, recv_timeout: float = 30.0, stop=None,
-                 retry=None, stats=None) -> int:
-    """The free-running client body of a thread worker; returns the
-    number of completed rounds.  ``retry`` (a
+def _client_loop(compute: ClientCompute, channel, client: int, *,
+                 data_index: Optional[int] = None, pacer=None, rounds: Optional[int] = None,
+                 recv_timeout: float = 30.0, stop=None, retry=None, stats=None) -> int:
+    """The free-running client body shared by thread and process
+    workers; returns the number of completed rounds.  ``data_index`` is
+    the client's row in ``compute.data`` (default ``client``; a process
+    worker holds its own row alone).  ``retry`` (a
     ``repro_torch.resilience.RetryPolicy``) makes every exchange survive
     lost frames and lost replies; ``stats`` (a dict) accumulates the
     retry count."""
@@ -213,6 +222,7 @@ def _client_loop(compute: ClientCompute, channel, client: int, *, pacer=None,
         return 0
     meta = init.meta
     params = init.tree
+    di = client if data_index is None else data_index
     seed_cfg = SimpleNamespace(seed=meta["seed"])
     codec = get_codec(meta["compressor"])
     ef = ErrorFeedback(enabled=meta["error_feedback"])
@@ -227,7 +237,7 @@ def _client_loop(compute: ClientCompute, channel, client: int, *, pacer=None,
     r = 0
     while r < total and not (stop is not None and stop.is_set()):
         sim_t = pacer.advance(client) if pacer is not None else time.monotonic() - t0
-        newp_s, eff_s = compute.local_round(params, client, gen, r)
+        newp_s, eff_s = compute.local_round(params, di, gen, r, client=client)
         value = norm = None
         if meta["needs_values"]:
             value = compute.value(newp_s, eff_s, prev_grad)
@@ -421,10 +431,65 @@ class SequentialDriver:
         return server.finalize()
 
 
-class ProcessClientWorker:
-    """One client as an OS process over the socket transport: not ported
-    yet."""
+# --------------------------------------------------- process workers ---
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("process client workers and the socket transport are not "
-                                  "ported to repro_torch yet (ROADMAP.md, queue 1 item 9b)")
+def _process_client_main(host, port, client, forward_fn, model_cfg, local, images, labels, mask,
+                         rounds, pace_seed, device, recv_timeout: float = 30.0) -> int:
+    """Entry point of a spawned client process (module level, so spawn's
+    pickler can import it).  Rebuilds the compute bundle on ``device``
+    from numpy inputs and runs the client loop over a socket channel,
+    each wait for the server bounded by ``recv_timeout``; returns the
+    completed rounds.  Single-phase algorithms only (no eval set here)."""
+    from repro_torch.core.client import make_weighted_classifier_loss
+    loss_fn = make_weighted_classifier_loss(forward_fn, model_cfg)
+    compute = ClientCompute(loss_fn=loss_fn, local=local,
+                            data={"images": images, "labels": labels, "mask": mask},
+                            num_clients=1, device=device)
+    pacer = None
+    if pace_seed is not None:
+        from repro_torch.core.scheduler import SpeedModel
+        pacer = ScenarioPacer(SpeedModel.paper_testbed(client + 1, pace_seed))
+    channel = _SocketChannel(host, port, client, device=compute.device)
+    return _client_loop(compute, channel, client, data_index=0, pacer=pacer, rounds=rounds,
+                        recv_timeout=recv_timeout)
+
+
+class ProcessClientWorker:
+    """One client as an OS process over the ``socket`` transport, started
+    with ``spawn`` (a forked child cannot use CUDA).  The child rebuilds
+    its compute bundle from picklable pieces: the forward by module
+    reference (``repro_torch.models.cnn.mlp_forward``/``cnn_forward``),
+    the model and local-spec dataclasses, and its own data rows as host
+    numpy; no tensor crosses the spawn pickler.  It computes on
+    ``device``, a CUDA context of its own by default (raises here without
+    a card), and waits up to ``recv_timeout`` seconds for each message of
+    the server (the first is its init broadcast); single-phase algorithms
+    only (the Eq. 1 value term needs the server's eval set)."""
+
+    def __init__(self, address, client: int, *, forward_fn, model_cfg, local, fed_data,
+                 rounds: Optional[int] = None, pace_seed: Optional[int] = None, device="cuda",
+                 recv_timeout: float = 30.0):
+        dev = str(resolve_device(device))
+        host, port = address
+        sl = slice(client, client + 1)
+        self._proc = multiprocessing.get_context("spawn").Process(
+            target=_process_client_main,
+            args=(host, port, client, forward_fn, model_cfg, local,
+                  np.asarray(fed_data.images[sl]), np.asarray(fed_data.labels[sl]),
+                  np.asarray(fed_data.mask[sl]), rounds, pace_seed, dev, recv_timeout),
+            daemon=True, name=f"serve-client-{client}")
+        self.client = client
+
+    def start(self) -> None:
+        self._proc.start()
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        self._proc.join(timeout)
+
+    def kill(self) -> None:
+        """Hard-kill the worker (SIGKILL)."""
+        self._proc.kill()
+
+    @property
+    def exitcode(self):
+        return self._proc.exitcode

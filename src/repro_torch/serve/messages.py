@@ -35,9 +35,8 @@ Frame format: 4 magic bytes (``MAGIC``: format version, a cheap
 corruption tripwire) + a 4-byte big-endian length + the pickled body,
 the length bounded by ``MAX_FRAME_BYTES``.  A frame that fails the
 checks raises :class:`WireError` (a ``ConnectionError``) so a transport
-routes it through its dead-client path.  Reading frames off a socket
-(``read_frame``) comes with the socket transport, ROADMAP.md queue 1
-item 9b.
+routes it through its dead-client path (:func:`read_frame` reads one
+frame off a socket).
 """
 from __future__ import annotations
 
@@ -161,3 +160,39 @@ def msg_from_wire(body: bytes, device="cpu"):
         else:
             msg = replace(msg, payload=tree_to_device(msg.payload, device))
     return msg
+
+
+def read_frame(sock) -> Optional[bytes]:
+    """Read one framed body from a socket; None on clean EOF (the peer
+    closed between frames).  A half-read frame (the peer died mid-send)
+    raises ConnectionError; bad magic or an oversized length raises
+    WireError.  Either way the transport turns it into its dead-client
+    path."""
+    head = _read_exact(sock, len(MAGIC) + 4)
+    if head is None:
+        return None
+    if head[:len(MAGIC)] != MAGIC:
+        raise WireError(f"bad frame magic {head[:len(MAGIC)]!r} (expected {MAGIC!r}) — corrupt "
+                        "or desynced stream")
+    (n,) = struct.unpack("!I", head[len(MAGIC):])
+    if n > MAX_FRAME_BYTES:
+        raise WireError(f"frame length {n} exceeds MAX_FRAME_BYTES ({MAX_FRAME_BYTES}) — corrupt "
+                        "length prefix")
+    body = _read_exact(sock, n)
+    if body is None:
+        raise ConnectionError("peer closed mid-frame")
+    return body
+
+
+def _read_exact(sock, n: int) -> Optional[bytes]:
+    """Exactly n bytes, or None on EOF at a frame boundary; EOF inside a
+    frame raises ConnectionError."""
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            if not buf:
+                return None
+            raise ConnectionError("peer closed mid-frame")
+        buf += chunk
+    return buf

@@ -9,8 +9,8 @@ thread: round-robin the servers, sleep only when EVERY queue is quiet.
     results = mt.run()        # [RunResult, RunResult] in tenant order
 
 Each tenant keeps its own transport, algorithm state, CommStats and obs;
-nothing is shared but the device and the loop.  The live telemetry
-plane (``live=``) is ROADMAP.md queue 1 item 9b.
+nothing is shared but the device, the loop and, with ``live=``, one HTTP
+telemetry plane over every tenant.
 """
 from __future__ import annotations
 
@@ -30,13 +30,19 @@ class MultiTenantServer:
             raise ValueError("MultiTenantServer needs at least one server")
         self.servers = list(servers)
         self._stopping = False
-        from repro_torch.serve.run import resolve_live
-        resolve_live(live, self.servers)   # raises for a live plane: not ported yet
+        # the live telemetry plane (repro_torch.obs.live): ONE HTTP
+        # endpoint over every tenant, each labelled tenant="<server.name>"
+        # in the /metrics exposition; built on start(), stopped after run()
+        self._live_req = live
+        self.live = None
 
     def stop(self) -> None:
         self._stopping = True
 
     def start(self) -> None:
+        if self._live_req and self.live is None:
+            from repro_torch.serve.run import resolve_live
+            self.live = resolve_live(self._live_req, self.servers)
         for s in self.servers:
             s.start()
 
@@ -61,4 +67,9 @@ class MultiTenantServer:
                 if time.monotonic() - last_msg > stall_timeout:
                     break
                 time.sleep(_IDLE_SLEEP)
-        return [s.finalize() for s in self.servers]
+        try:
+            return [s.finalize() for s in self.servers]
+        finally:
+            if self.live is not None:
+                self.live.stop()
+                self.live = None

@@ -18,7 +18,7 @@ Drivers:
 
 ``launch_serving`` returns the un-started pieces (server and workers)
 for callers composing their own lifecycles (multi-tenant, benchmarks).
-The live telemetry plane (``live=``) is ROADMAP.md queue 1 item 9b.
+``live=`` serves the run's telemetry over HTTP while it runs.
 """
 from __future__ import annotations
 
@@ -36,19 +36,34 @@ DRIVERS = ("thread", "sequential")
 
 
 def resolve_live(live, servers):
-    """The live HTTP telemetry plane over ``servers``: None when ``live``
-    is None or False.  Any other value asks for the plane, which is not
-    ported yet, and raises."""
+    """Normalise a user-facing ``live=`` value into a STARTED
+    ``ObsHttpServer`` over ``servers`` (or None): True gives the defaults
+    (127.0.0.1, an ephemeral port), an int that port, a dict
+    ``ObsHttpServer`` kwargs (host/port/probes).  The plane is attached
+    to each server as ``.live`` so callers holding only the server can
+    find the bound port."""
     if live is None or live is False:
         return None
-    raise NotImplementedError("the live telemetry plane (live=) is not ported to repro_torch "
-                              "yet (ROADMAP.md, queue 1 item 9b)")
+    if live is True:
+        kw = {}
+    elif isinstance(live, int):
+        kw = {"port": live}
+    elif isinstance(live, dict):
+        kw = dict(live)
+    else:
+        raise ValueError("live must be None/False (off), True (ephemeral port), an int port, "
+                         f"or a dict of ObsHttpServer kwargs; got {live!r}")
+    from repro_torch.obs.live import ObsHttpServer
+    plane = ObsHttpServer(servers, **kw).start()
+    for s in servers:
+        s.live = plane
+    return plane
 
 
-def _resolve_transport(transport, num_clients: int, capacity: int):
+def _resolve_transport(transport, num_clients: int, capacity: int, device):
     if isinstance(transport, Transport):
         return transport, False
-    return get_transport(transport)(num_clients, capacity), True
+    return get_transport(transport)(num_clients, capacity, device=device), True
 
 
 def _resolve_pacer(pace, run_cfg):
@@ -81,7 +96,7 @@ def launch_serving(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
     the server's per-exchange and dead-client deadlines (seconds; None
     is off); ``name`` labels the tenant."""
     dev = resolve_device(device)
-    tr, _owned = _resolve_transport(transport, run_cfg.num_clients, capacity)
+    tr, _owned = _resolve_transport(transport, run_cfg.num_clients, capacity, dev)
     server = FLServer(run_cfg, init_params_fn=init_params_fn, evaluate_fn=evaluate_fn,
                       transport=tr, speed=speed, exchange_timeout=exchange_timeout,
                       liveness_timeout=liveness_timeout, verbose=verbose, name=name,
@@ -105,13 +120,18 @@ def serve_run(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
     """Run one federation as a live service on ``device`` and return its
     RunResult.  ``perm_fn`` is the local update's permutation hook
     (``core.client``); the sequential driver passes it the event index,
-    as ``run_event_driven`` does, and thread workers their own round."""
+    as ``run_event_driven`` does, and thread workers their own round.
+    ``live`` turns on the HTTP telemetry plane for the run (True / port /
+    dict, see ``resolve_live``); the bound plane is ``server.live`` while
+    the run is up."""
     if driver not in DRIVERS:
         raise ValueError(f"unknown driver {driver!r}; known: {DRIVERS}")
-    resolve_live(live, [])
     dev = resolve_device(device)
     if driver == "sequential":
-        tr, owned = _resolve_transport(transport, run_cfg.num_clients, capacity)
+        if live:
+            raise ValueError("live telemetry needs the thread driver: the sequential bridge "
+                             "runs in one thread with nothing to watch concurrently")
+        tr, owned = _resolve_transport(transport, run_cfg.num_clients, capacity, dev)
         # resume_fresh_clients=False: the bridge driver rebuilds each
         # client's exact state (base tree, version, seq) from the restored
         # server, so a cfg.resume run continues bit-identically
@@ -132,7 +152,9 @@ def serve_run(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
         capacity=capacity, pace=pace, speed=speed, recv_timeout=recv_timeout, retry=retry,
         exchange_timeout=exchange_timeout, liveness_timeout=liveness_timeout,
         verbose=verbose, device=dev, perm_fn=perm_fn)
+    plane = None
     try:
+        plane = resolve_live(live, [server])
         server.start()
         for w in workers:
             w.start()
@@ -149,4 +171,6 @@ def serve_run(run_cfg, *, init_params_fn, loss_fn, fed_data, evaluate_fn,
                                f"{errors[0]!r}") from errors[0]
         return res
     finally:
+        if plane is not None:
+            plane.stop()
         tr.close()

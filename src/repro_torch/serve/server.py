@@ -117,6 +117,7 @@ class FLServer:
         self.obs = _obs_for_run(run_cfg)
         self.transport = transport
         self.verbose = verbose
+        self.live = None     # the HTTP telemetry plane, attached by resolve_live
 
         # scheduler: bookkeeping ledgers (and, when an external driver
         # owns it, the exact simulated clock the result reports), built
@@ -466,10 +467,10 @@ class FLServer:
     # ------------------------------------------------------ live plane ---
 
     def scoreboard(self) -> dict:
-        """The per-client health scoreboard of the live telemetry plane
-        (``/clients``), which is not ported yet."""
-        raise NotImplementedError("the live telemetry plane (client_scoreboard, /clients) is "
-                                  "not ported to repro_torch yet (ROADMAP.md, queue 1 item 9b)")
+        """The per-client health scoreboard (``repro_torch.obs.live``):
+        byte ledgers, staleness, liveness; the ``/clients`` payload."""
+        from repro_torch.obs.live import client_scoreboard
+        return client_scoreboard(self)
 
     def absorb_client_stats(self, workers) -> None:
         """Fold the fleet's client-side stats (retry counts) into the obs

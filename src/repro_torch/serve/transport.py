@@ -19,11 +19,16 @@ broadcast mailbox per client.  Every implementation keeps:
 * **non-blocking server recv**: every server-side receive takes a
   timeout.
 
-Builtin: ``inproc`` (a bounded ``queue.Queue`` pair: threads in one
-process, no serialization, trees and payloads by reference).  The
-reference's ``socket`` transport (client processes over localhost TCP)
-and ``chaos`` (fault injection) are ROADMAP.md queue 1 item 9b; asking
-for them raises.
+Builtins: ``inproc`` (a bounded ``queue.Queue`` pair: threads in one
+process, no serialization, trees and payloads by reference), ``socket``
+(``repro_torch.serve.socket_transport``: localhost TCP with
+magic-prefixed, length-bounded pickle frames, for client processes) and
+``chaos`` (``repro_torch.resilience.chaos``: a fault-injecting wrapper
+around any inner transport).
+
+A factory is called as ``factory(num_clients, capacity, device=...)``:
+``device`` is where the server's trees live, which a transport that
+decodes frames puts them on.
 """
 from __future__ import annotations
 
@@ -115,11 +120,12 @@ class InprocTransport(Transport):
     """Bounded in-process queue pair, the default.  Trees and payloads
     cross by reference (no copies), as the closed-loop runtimes alias
     ``client_params[i] = global_params``, so the determinism bridge stays
-    bit-exact."""
+    bit-exact; ``device`` is accepted for the registry's call and unused
+    (nothing is decoded)."""
 
     name = "inproc"
 
-    def __init__(self, num_clients: int, capacity: int = 0):
+    def __init__(self, num_clients: int, capacity: int = 0, *, device=None):
         self._uploads: queue.Queue = queue.Queue(maxsize=capacity)
         self._bcast = [queue.Queue() for _ in range(num_clients)]
         self.num_clients = num_clients
@@ -161,9 +167,9 @@ _BUILTIN_OWNED: set = set()
 _BUILTIN_FACTORIES: Tuple[Tuple[str, str, str], ...] = (
     # (name, module, attr): imported lazily on first lookup
     ("inproc", "repro_torch.serve.transport", "InprocTransport"),
+    ("socket", "repro_torch.serve.socket_transport", "SocketTransport"),
+    ("chaos", "repro_torch.resilience.chaos", "ChaosTransport"),
 )
-# the reference's other builtins, not ported yet
-_NOT_PORTED = ("socket", "chaos")
 _builtins_loaded = False
 
 
@@ -183,8 +189,8 @@ def _ensure_builtins() -> None:
 
 def register_transport(name: str, factory: Callable[..., Transport], *,
                        overwrite: bool = False) -> None:
-    """Register a transport factory ``factory(num_clients, capacity=0)``
-    under ``name``.  Re-registration is an error unless ``overwrite``."""
+    """Register a transport factory ``factory(num_clients, capacity=0, *,
+    device)`` under ``name``.  Re-registration is an error unless ``overwrite``."""
     if not overwrite and name in _REGISTRY:
         raise ValueError(f"transport {name!r} already registered")
     _REGISTRY[name] = factory
@@ -198,11 +204,6 @@ def get_transport(name: str) -> Callable[..., Transport]:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in _NOT_PORTED:
-            raise ValueError(
-                f"transport {name!r} is not ported to repro_torch yet (ROADMAP.md, queue 1 "
-                f"item 9b); registered transports: {', '.join(available_transports())}"
-            ) from None
         raise ValueError(f"unknown transport {name!r}; registered transports: "
                          f"{', '.join(available_transports())}") from None
 

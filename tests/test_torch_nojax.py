@@ -79,7 +79,16 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.bench.ablation_value\n"
         "import repro_torch.examples.quickstart, repro_torch.examples.fl_mnist_vafl\n"
         "from repro_torch.serve import available_transports, get_transport\n"
-        "assert available_transports() == ('inproc',)\n"
+        "assert available_transports() == ('inproc', 'socket', 'chaos')\n"
+        "import repro_torch.serve.socket_transport, repro_torch.resilience.chaos\n"
+        "import repro_torch.obs.live.http, repro_torch.obs.live.probes\n"
+        "import repro_torch.obs.live.prometheus, repro_torch.obs.live.scoreboard\n"
+        "from repro_torch.serve.socket_transport import SocketTransport\n"
+        "from repro_torch.resilience import ChaosTransport\n"
+        "assert get_transport('socket') is SocketTransport\n"
+        "assert get_transport('chaos') is ChaosTransport\n"
+        "from repro_torch.obs.live import ObsHttpServer, render_prometheus, get_probe\n"
+        "from repro_torch.serve.client import ProcessClientWorker, _process_client_main\n"
         "from repro_torch.core import ALGORITHMS\n"
         "assert 'vafl' in ALGORITHMS\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"

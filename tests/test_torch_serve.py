@@ -11,8 +11,10 @@ repro_torch.resilience's retry policy, against repro on the CPU.
   between XLA and torch).  On torch's own generator the bridge equals
   the port's ``run(mode="event")`` bit for bit, parameters included.
 * Ports of the reference's tests/test_serve.py (transport registry,
-  FIFO, backpressure, drain, dedup, the server lifecycle without process
-  workers, the thread-worker runs without socket and live) and of
+  FIFO, backpressure, drain, dedup, the server lifecycle, the
+  thread-worker runs over inproc; the socket transport, process workers
+  and chaos are tests/test_torch_wire.py, the live plane
+  tests/test_torch_obs_live.py) and of
   tests/test_resilience.py (the retry policy, ``_exchange``, eviction
   and readmission, a wedged exchange, the bridge's checkpoint resume and
   its refusals).  Every serve run bounds itself (``stall_timeout``,
@@ -58,8 +60,8 @@ from repro_torch.models import cnn as tcnn  # noqa: E402
 from repro_torch.obs import ObsConfig  # noqa: E402
 from repro_torch.resilience import FaultPlan, FaultSpec, RetryPolicy  # noqa: E402
 from repro_torch.serve import (FLServer, InprocTransport, MultiTenantServer,  # noqa: E402
-                               ProcessClientWorker, SequentialDriver, available_transports,
-                               get_transport, launch_serving, register_transport, serve_run)
+                               SequentialDriver, available_transports, get_transport,
+                               launch_serving, register_transport, serve_run)
 from repro_torch.serve import messages as wire  # noqa: E402
 from repro_torch.serve.client import ClientCompute, _exchange, worker_seed  # noqa: E402
 from repro_torch.serve.messages import (BroadcastMsg, UploadMsg, WireError,  # noqa: E402
@@ -239,16 +241,11 @@ def test_sync_barrier_algorithms_rejected(setup):
 
 class TestTransportRegistry:
     def test_builtins_first_in_stable_order(self):
-        assert available_transports()[:1] == ("inproc",)
+        assert available_transports()[:3] == ("inproc", "socket", "chaos")
 
     def test_unknown_name_fails_loudly(self):
         with pytest.raises(ValueError, match="inproc"):
             get_transport("carrier-pigeon")
-
-    @pytest.mark.parametrize("name", ["socket", "chaos"])
-    def test_unported_builtins_name_the_roadmap(self, name):
-        with pytest.raises(ValueError, match="item 9b"):
-            get_transport(name)
 
     def test_register_resolve_duplicate_overwrite(self):
         from repro_torch.serve import transport as reg
@@ -276,18 +273,6 @@ class TestTransportRegistry:
     def test_unknown_driver_fails_loudly(self, setup):
         with pytest.raises(ValueError, match="sequential"):
             serve_run(_cfg(), driver="carrier-pigeon", **_callables(setup))
-
-    def test_unported_pieces_name_the_roadmap(self, setup):
-        server, tr = _server(setup)
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            ProcessClientWorker(("127.0.0.1", 0), 0)
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            serve_run(_cfg(), live=True, **_callables(setup))
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            MultiTenantServer([server], live=True)
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            server.scoreboard()
-        tr.close()
 
     def test_serve_runs_on_cuda_unless_asked(self, setup):
         """The default device is the card; without one serve raises."""
