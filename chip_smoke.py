@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke test of repro_torch on one NVIDIA H100: build the four CUDA
-kernels, hold each against its plain PyTorch version on the card, time
-them, and drive the port's four main paths through their public entry
-points.
+"""Smoke test of repro_torch on one NVIDIA H100: build the CUDA kernels
+(the four TPU kernels' counterparts and the flash_attention backward),
+hold each against its plain PyTorch version on the card, time them, and
+drive the port's main paths through their public entry points.
 
 1. Algorithm 1:
 
@@ -71,7 +71,20 @@ points.
 9. ``[figures]``: the paper's Fig. 4 (experiments a-d), Fig. 5/6 and
    the value ablation (experiment d) at 3 rounds on the card, each
    printing its CSV.
-10. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
+10. ``[train]``: the flash_attention backward kernel against the plain
+   backward (autograd through ``ref.gqa_attention``) in fp32 and bf16,
+   with and without a window, at starcoder2_3b's and minicpm_2b's
+   attention shapes, timed beside its bound and SDPA's autograd
+   backward; then minicpm_2b at its published width with the depth cut
+   to 2 layers (B 4 x S 1024, bf16 compute, fp32 params): step 1's loss
+   and every leaf's gradient through the kernels against the plain
+   attention route on the card, ``make_train_step`` for 5 steps on one
+   repeated batch twice from one seed (bit-equal, the loss falling),
+   ``make_fl_train_step`` with P = 2 silos for vafl and afl (one
+   grad_diff_norm launch a step), the gated collective on 2 spawned
+   ranks (gloo, CUDA tensors) on the reference test's inputs, and the
+   federated LM example, afl against vafl.
+11. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
    rwkv6_3b at their full published configurations (random weights from
    a seed): 4 prompts of 2048 tokens, 32 greedy tokens each (kernels
    flash_attention and linear_scan in the prefill), then a prefill of
@@ -99,9 +112,15 @@ line before that the per-kernel JSON (launches, max error, times,
 bound; ``event_*`` fields for the event path, ``batched_launches``
 for the batched engine, ``round_scenario_launches``,
 ``checkpoint_launches``, ``obs_launches``, ``fl_serve_launches``,
-``fl_wire_launches``, ``fl_wire_child_launches`` and
-``figures_launches`` for the later paths).  It imports neither JAX
-nor the JAX package.
+``fl_wire_launches``, ``fl_wire_child_launches``, ``figures_launches``
+and ``train_launches`` for the later paths; the ``flash_attention_bwd``
+row's ``launches`` are the [train] path's, its
+``train_step_run_launches`` one 5-step ``make_train_step`` run's).
+Before the [train] path it holds step 1 of the full-width train step
+through the kernels against the plain attention route, leaf by leaf,
+with the forward and the backward each swapped alone; those launches
+are a comparison's and fall outside every path's counts.  It imports
+neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -536,6 +555,14 @@ def _pairs(S: int, window) -> int:
 
 
 def phase_flash_attention(rows: list):
+    """The forward kernel as serving launches it (grad disabled: no
+    logsumexp written) against its plain version, timed."""
+    import torch
+    with torch.no_grad():
+        _flash_attention_cases(rows)
+
+
+def _flash_attention_cases(rows: list):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -642,10 +669,12 @@ def _reset_launches():
     from repro_torch.kernels.grad_diff_norm import ops as gd
     from repro_torch.kernels.linear_scan import ops as ls
     from repro_torch.kernels.topk_quant import ops as tq
-    mods = {"grad_diff_norm": gd, "topk_quant": tq, "flash_attention": fa, "linear_scan": ls}
-    for m in mods.values():
-        m.launches = 0
-    return lambda: {name: m.launches for name, m in mods.items()}
+    counters = {"grad_diff_norm": (gd, "launches"), "topk_quant": (tq, "launches"),
+                "flash_attention": (fa, "launches"), "flash_attention_bwd": (fa, "bwd_launches"),
+                "linear_scan": (ls, "launches")}
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
+    return lambda: {name: getattr(m, attr) for name, (m, attr) in counters.items()}
 
 
 def _prefill_vs_stepwise(cfg, params) -> tuple:
@@ -798,7 +827,7 @@ def phase_main_path():
             f"{launches[alg][0]}, topk_quant {launches[alg][1]}")
     counts = read()                              # read just after the main path
     total = (counts["grad_diff_norm"], counts["topk_quant"])
-    if counts["flash_attention"] or counts["linear_scan"]:
+    if counts["flash_attention"] or counts["flash_attention_bwd"] or counts["linear_scan"]:
         fail(f"Algorithm 1 launched a serving kernel: {counts}")
     vafl, afl = runs["vafl"][0], runs["afl"][0]
     say(f"[main] count CCR vafl vs afl: {ccr(afl.comm.model_uploads, vafl.comm.model_uploads):.4f}")
@@ -961,7 +990,7 @@ def phase_event_path():
             fail(f"event {name}: {tq} topk_int8 encode calls for {res.comm.model_uploads} "
                  f"accepted uploads")
     counts = read()                              # read just after the event path
-    if counts["flash_attention"] or counts["linear_scan"]:
+    if counts["flash_attention"] or counts["flash_attention_bwd"] or counts["linear_scan"]:
         fail(f"the event path launched a serving kernel: {counts}")
     vafl, afl, fedavg = runs["vafl"][0], runs["afl"][0], runs["fedavg"][0]
     if vafl.comm.model_uploads > afl.comm.model_uploads:
@@ -1134,7 +1163,7 @@ def phase_batched_path(seq_vafl):
     read = _reset_launches()
     runs = {name: _run_batched(fed, name, kw, seen) for name, kw in BATCHED_RUNS}
     counts = read()                              # read just after the batched path
-    if counts["flash_attention"] or counts["linear_scan"]:
+    if counts["flash_attention"] or counts["flash_attention_bwd"] or counts["linear_scan"]:
         fail(f"the batched path launched a serving kernel: {counts}")
     vafl, afl = runs["vafl"][0], runs["afl K=4"][0]
     if vafl.comm.model_uploads > afl.comm.model_uploads:
@@ -1180,7 +1209,7 @@ CKPT_RUNS = [   # (name, Federation.run overrides, checkpoint_every) on the main
 ]
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy")
-OBS_LAPS = 4                     # (off, on, on, off) turns of the overhead lap
+OBS_LAPS = 2                     # (off, on, on, off) turns of the overhead lap
 PROFILE_PAD = 32                 # uncounted spin kernels opening a profiled region
 KILL_TIMEOUT_S = 300             # the killed child's first checkpoint must land by then
 
@@ -1592,6 +1621,7 @@ def phase_obs(whole):
             "window_syncs": readings[0][2]}
 
 
+FL_SERVE_ROUNDS = 2                             # bridge and thread runs (depth cut from 3)
 FL_SERVE_BRIDGE = ("vafl", "afl", "fedasync")   # bridge runs held against run(mode="event")
 FL_SERVE_THREADS = ("vafl", "afl")              # thread-worker runs
 FL_SERVE_WAIT = dict(stall_timeout=120.0, recv_timeout=120.0)
@@ -1678,7 +1708,7 @@ def _concurrent_encodes() -> dict:
 def fl_serve_references():
     """The references ``[fl-serve]``'s bridge is held against: the main
     federation (the CNN, 7 clients, topk0.1_int8, on the card) and its
-    ``run(rounds=3, mode="event")`` for each of ``FL_SERVE_BRIDGE``, run
+    ``run(rounds=FL_SERVE_ROUNDS, mode="event")`` for each of ``FL_SERVE_BRIDGE``, run
     before the serve path's launch counts are set to 0 (the event path's
     own launches are ``event_launches``).  Returns (the captured
     federation, {algorithm: (result, final parameters, host seconds,
@@ -1691,7 +1721,7 @@ def fl_serve_references():
         g0, t0 = _launch_pair()
         torch.cuda.synchronize()
         h0 = time.perf_counter()
-        ref = cap.fed.run(rounds=3, mode="event", algorithm=alg)
+        ref = cap.fed.run(rounds=FL_SERVE_ROUNDS, mode="event", algorithm=alg)
         torch.cuda.synchronize()
         ev_s = time.perf_counter() - h0
         ev_l = tuple(b - a for a, b in zip((g0, t0), _launch_pair()))
@@ -1702,8 +1732,8 @@ def fl_serve_references():
 def phase_fl_serve(cap, refs):
     """``[fl-serve]``: ``Federation.serve`` on the main federation of
     ``fl_serve_references``.  The sequential bridge for vafl, afl and
-    fedasync, each bit-equal to that federation's ``run(rounds=3,
-    mode="event")`` (parameters, records, CommStats, clock) with the same
+    fedasync, each bit-equal to that federation's ``run(rounds=
+    FL_SERVE_ROUNDS, mode="event")`` (parameters, records, CommStats, clock) with the same
     kernel launches; thread workers for vafl and afl (the run ends, byte
     ledgers reconcile with CommStats, one encode an accepted upload;
     events/s, and the card's busy share of a profiled vafl round); a
@@ -1717,14 +1747,15 @@ def phase_fl_serve(cap, refs):
     from repro_torch.serve import MultiTenantServer, launch_serving
 
     fed = cap.fed
-    events = 3 * len(fed.data.counts)
+    events = FL_SERVE_ROUNDS * len(fed.data.counts)
     out = {"bridge": {}, "threads": {}}
     for alg in FL_SERVE_BRIDGE:
         ref, ref_p, ev_s, ev_l = refs[alg]
-        res, sv_s, gd, tq = _served(cap, rounds=3, driver="sequential", algorithm=alg)
+        res, sv_s, gd, tq = _served(cap, rounds=FL_SERVE_ROUNDS, driver="sequential",
+                                    algorithm=alg)
         same = _everything(res) == _everything(ref) and _same_params(cap.final(), ref_p)
         say(f"[fl-serve] bridge {alg}: serve(driver=\"sequential\") vs run(mode=\"event\"), "
-            f"3 rounds ({events} events): {'bit-equal' if same else 'DIFFERENT'} "
+            f"{FL_SERVE_ROUNDS} rounds ({events} events): {'bit-equal' if same else 'DIFFERENT'} "
             f"(parameters, records, CommStats, sim_time {res.sim_time:.6f}); uploads "
             f"{res.comm.model_uploads}, launches grad_diff_norm {gd} vs {ev_l[0]}, topk_quant "
             f"{tq} vs {ev_l[1]}; {sv_s / events:.4f} s an event served vs {ev_s / events:.4f} "
@@ -1738,7 +1769,8 @@ def phase_fl_serve(cap, refs):
             fail(f"[fl-serve] bridge vafl launched grad_diff_norm {gd} times for {events} events")
         out["bridge"][alg] = (sv_s / events, ev_s / events)
     for alg in FL_SERVE_THREADS:
-        res, secs, gd, tq = _served(cap, rounds=3, algorithm=alg, **FL_SERVE_WAIT)
+        res, secs, gd, tq = _served(cap, rounds=FL_SERVE_ROUNDS, algorithm=alg,
+                                    **FL_SERVE_WAIT)
         c = res.comm
         ok = (c.broadcasts == events and sum(res.client_uplink_bytes) == c.uplink_bytes
               and sum(res.client_downlink_bytes) == c.downlink_bytes
@@ -2266,6 +2298,482 @@ def phase_figures():
     return secs
 
 
+# the [train] phase: the flash_attention backward, training minicpm_2b at
+# its published width (depth cut), the cross-silo step, the gated
+# collective on two ranks and the federated LM example
+TRAIN_CUT = dict(num_layers=2)              # minicpm_2b's 40 layers cut to 2 (reduced)
+TRAIN = dict(batch=4, seq=1024, steps=5, lr=1e-3)   # bf16 compute, fp32 params
+FL_TRAIN = dict(pods=2, batch_per_pod=2, steps=5)
+# backward cases: (B, S, H, KV, hd, window, dtype) at starcoder2_3b's and
+# minicpm_2b's attention shapes, each dtype with and without a window
+FA_BWD_CASES = [(4, 2048, 24, 2, 128, None, "bfloat16"), (4, 2048, 24, 2, 128, 256, "bfloat16"),
+                (4, 2048, 24, 2, 128, None, "float32"), (4, 2048, 24, 2, 128, 256, "float32"),
+                (4, 1024, 36, 36, 64, None, "bfloat16"), (4, 1024, 36, 36, 64, 128, "bfloat16"),
+                (4, 1024, 36, 36, 64, None, "float32"), (4, 1024, 36, 36, 64, 128, "float32")]
+FA_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # of each gradient's scale
+# step 1, kernel route vs plain route at bf16 compute, of each leaf's
+# scale: at most this, and at most the run's bf16 floor, the plain
+# route's own largest leaf gap to the same step at fp32 compute.  The
+# worst leaf is the tied table, whose gradient comes out of a bf16
+# GEMM, and its gap is the same whichever half of attention runs
+# through a kernel (PERF.md, PR 23): bf16 rounding; a missing attention
+# gradient moves wq, wk and wv by their whole scale
+TRAIN_GRAD_TOL = 2e-2
+TRAIN_CHECK_SEEDS = (0, 1)
+# the reference test's eight pods (tests/test_distributed.py), cut to two
+# ranks twice: pods (4, 5), both above the mean, and pods (0, 5)
+GATED_VALS = [0.0, 0.0, 0.0, 0.0, 9.0, 9.0, 0.0, 0.0]
+GATED_WTS = [1.0, 1.0, 1.0, 1.0, 1.0, 3.0, 1.0, 1.0]
+GATED_PODS = [(4, 5), (0, 5)]
+
+
+def phase_flash_backward(rows: list):
+    """The backward kernel against the plain backward (autograd through
+    ``ref.gqa_attention``) on the card, timed beside its bound and the
+    autograd backward of ``F.scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for B, S, H, KV, hd, window, dtype in FA_BWD_CASES:
+        dt = getattr(torch, dtype)
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt) for _ in range(2))
+        do = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
+        o, lse = ops._launch(q, k, v, window, True)
+        got = ops._launch_bwd(q, k, v, o, do, lse, window)
+        again = ops._launch_bwd(q, k, v, o, do, lse, window)
+        want = ref.gqa_attention_bwd(q, k, v, do, window=window)
+        torch.cuda.synchronize()
+        case = f"(B {B}, S {S}, H {H}, KV {KV}, hd {hd}, window {window}) {dtype}"
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            scale = float(b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            errs.append(err / scale)
+            if not (a.dtype == dt and bool(torch.isfinite(a).all())
+                    and err <= FA_BWD_TOL[dtype] * scale):
+                fail(f"flash_attention backward {case}: {name} max abs err {err:.3g} beyond "
+                     f"{FA_BWD_TOL[dtype]} x its scale {scale:.3g}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention backward {case}: two launches on one input differ")
+        say(f"[train] flash_attention backward {case}: max abs err / scale dq {errs[0]:.3g}, "
+            f"dk {errs[1]:.3g}, dv {errs[2]:.3g} (limit {FA_BWD_TOL[dtype]}), rerun bit-equal")
+        esize = q.element_size()
+        nbytes = (B * S * (4 * H + 4 * KV) * hd * esize     # q, k, v, o, dO read; dq, dk, dv
+                  + B * H * S * 4)                          # written; lse read
+        nops = 10 * hd * _pairs(S, window) * B * H          # 5 products of 2 ops a multiply-add
+        bms, bby = bound_ms(nbytes, nops, BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S)
+        lib = None
+        if window is None:      # the function SDPA computes
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            dot = do.transpose(1, 2)
+            lib = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+                          10, 2)
+            del qt, kt, vt, ot
+        rows.append({
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+            "replaces_note": "the gradient of that forward-only TPU kernel's function; the "
+                             "reference trains through plain jnp attention",
+            "shape": [B, S, H, KV, hd], "window": window, "dtype": dtype,
+            "design": "three launches, no atomics: rowsum(dO o) a warp a row; dK, dV a 64-key "
+                      "tile walking its GQA group's heads in order; dQ a 64-query tile; fp32 "
+                      "FMA 64 x 64 tiles on the CUDA cores for both dtypes",
+            "max_abs_err": max(errs), "max_abs_err_is": "of each gradient's scale",
+            "tol": FA_BWD_TOL[dtype],
+            "ms": cuda_ms(lambda: ops._launch_bwd(q, k, v, o, do, lse, window), 5, 1),
+            "plain_ms": cuda_ms(lambda: ref.gqa_attention_bwd(q, k, v, do, window=window), 3, 1),
+            "bound_ms": bms, "bound_by": bby, "bound_bytes": nbytes, "bound_ops": nops,
+            "library_ms": lib,
+            "library_call": ("autograd backward of F.scaled_dot_product_attention(is_causal=True, "
+                             "enable_gqa=True)" if lib is not None else None)})
+        del q, k, v, do, o, lse, got, again, want
+        torch.cuda.empty_cache()
+
+
+def _train_cfg():
+    from repro_torch.models.registry import get_config
+    return get_config("minicpm_2b").replace(**TRAIN_CUT)
+
+
+def _train_batch(cfg):
+    """The full-width cell's batch: ``token_stream`` (seed 1, as
+    ``launch/train.py`` draws its data), on the card."""
+    import torch
+    from repro_torch.data.synthetic import token_stream
+    toks, labs = token_stream(TRAIN["batch"], TRAIN["seq"], cfg.vocab_size, seed=1)
+    return {"tokens": torch.from_numpy(toks).long().cuda(),
+            "labels": torch.from_numpy(labs).long().cuda()}
+
+
+def _train_run(cfg) -> dict:
+    """``make_train_step`` for TRAIN["steps"] steps on one repeated batch
+    (an overfit check: the loss of a batch it trains on must fall), from
+    parameters drawn from seed 0: losses, grad norms, seconds a step
+    (host clock, synchronised by the loss read), the final parameters,
+    and the launches of the steps (a difference of the counts, which are
+    the [train] path's and are not reset here)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.grad_diff_norm import ops as gd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import decoder
+    step_fn, opt_init = make_train_step(cfg, lr=TRAIN["lr"])
+    params = decoder.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt_state = opt_init(params)
+    batch = _train_batch(cfg)
+    torch.cuda.synchronize()
+    before = (fa.launches, fa.bwd_launches, gd.launches)
+    losses, norms, secs = [], [], []
+    for s in range(TRAIN["steps"]):
+        h0 = time.perf_counter()
+        params, opt_state, info = step_fn(params, opt_state, batch, s)
+        losses.append(float(info["loss"]))
+        secs.append(time.perf_counter() - h0)
+        norms.append(float(info["grad_norm"]))
+    counts = {name: n - b for name, n, b in zip(
+        ("flash_attention", "flash_attention_bwd", "grad_diff_norm"),
+        (fa.launches, fa.bwd_launches, gd.launches), before)}
+    return {"losses": losses, "grad_norms": norms, "step_s": secs, "params": params,
+            "counts": counts}
+
+
+def _plain_lse(q, k, window):
+    """Each query row's logsumexp of its masked, scaled fp32 scores, (B,
+    H, S): what the forward kernel writes for its backward."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref
+    B, S, H, hd = q.shape
+    kq = torch.repeat_interleave(k, H // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kq.float()) / hd ** 0.5
+    pos = torch.arange(S, device=q.device)
+    keep = pos[:, None] >= pos[None, :]
+    if window is not None:
+        keep &= (pos[:, None] - pos[None, :]) < window
+    return torch.logsumexp(s.masked_fill(~keep, ref.NEG_INF), dim=-1)
+
+
+def _attention_route(fwd_kernel: bool, bwd_kernel: bool):
+    """The model layer's attention call with its forward and its backward
+    each through the kernel or the plain version (``ref``): the mixes
+    that locate the step-1 gap between the two routes."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    class Mixed(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, window):
+            if fwd_kernel:
+                o, lse = ops._launch(q, k, v, window, True)
+            else:
+                o, lse = ref.gqa_attention(q, k, v, window), _plain_lse(q, k, window)
+            ctx.window = window
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            if bwd_kernel:
+                grads = ops._launch_bwd(q, k, v, o, do.contiguous(), lse, ctx.window)
+            else:
+                grads = ref.gqa_attention_bwd(q, k, v, do, window=ctx.window)
+            return (*grads, None)
+
+    return lambda q, k, v, window=None: Mixed.apply(q, k, v, window)
+
+
+def _leaf_names(tree, prefix="") -> list:
+    """Leaf paths in ``tree_flatten`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for key in sorted(tree)
+                for n in _leaf_names(tree[key], f"{prefix}.{key}" if prefix else key)]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, x in enumerate(tree) for n in _leaf_names(x, f"{prefix}[{i}]")]
+    return [] if tree is None else [prefix]
+
+
+def _step_one_grads(cfg, seed: int, route=None):
+    """Step 1's loss and gradients at the full-width cell from parameters
+    of ``seed``: the attention through the model layer's own call (the
+    kernels' Function), or through ``route`` (this check only)."""
+    import torch
+    from unittest import mock
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import decoder
+    params = decoder.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    batch = _train_batch(cfg)
+    lossf = lambda p, b: decoder.loss_fn(cfg, p, b)
+    if route is None:
+        return value_and_grad(lossf, params, batch)
+    with mock.patch.object(ops, "gqa_flash_attention", route):
+        return value_and_grad(lossf, params, batch)
+
+
+def _leaf_gaps(grads, want) -> list:
+    """Per leaf: (max|a - b| / max|b|, max|a - b|, max|b|, the share of
+    entries where a != b)."""
+    from repro_torch.common.pytree import tree_leaves
+    out = []
+    for a, b in zip(tree_leaves(grads), tree_leaves(want)):
+        diff, scale = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+        out.append((diff / scale, diff, scale, float((a != b).float().mean())))
+    return out
+
+
+def _worst(gaps, names) -> tuple:
+    """(the largest gap of scale, its leaf's name)."""
+    i = max(range(len(gaps)), key=lambda j: gaps[j][0])
+    return gaps[i][0], names[i]
+
+
+def gated_rank(q, root, rank, world, init):
+    """A spawned rank of the gated collective on the card (gloo, CUDA
+    tensors): the reference test's inputs cut to two pods, twice; puts
+    its selections, aggregates and collective bytes on ``q``."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import hlo
+    from repro_torch.distributed.gated import make_gated_allreduce, pod_values, should_sync
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    fn = make_gated_allreduce()
+    out = {"rank": rank, "cases": []}
+    for pods in GATED_PODS:
+        pod = pods[rank]
+        hlo.reset()
+        upd = {"w": torch.full((3,), float(pod), device="cuda")}
+        agg, sel, any_sel = fn(upd, torch.tensor(GATED_VALS[pod], device="cuda"),
+                               torch.tensor(GATED_WTS[pod], device="cuda"))
+        sync = should_sync(torch.tensor(GATED_VALS[pod], device="cuda"))
+        out["cases"].append({"pods": list(pods), "sel": float(sel[0]), "any": bool(any_sel),
+                             "agg": agg["w"].tolist(), "device": agg["w"].device.type,
+                             "sync": sync, "bytes": hlo.collective_bytes(),
+                             "counts": hlo.collective_counts()})
+    g = torch.Generator(device="cuda").manual_seed(rank)
+    a, b = (torch.randn(1 << 20, generator=g, device="cuda") for _ in range(2))
+    out["pod_value"] = float(pod_values({"x": a}, {"x": b}, 0.5, world))
+    out["pod_value_plain"] = float(torch.sum((a - b) ** 2) * (1.0 + world / 1e3) ** 0.5)
+    dist.destroy_process_group()
+    q.put(out)
+
+
+def _gated_two_ranks() -> list:
+    import multiprocessing
+    import queue
+    import tempfile
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{tmp}/rendezvous"
+        procs = [ctx.Process(target=gated_rank, args=(q, str(ROOT), r, 2, init))
+                 for r in range(2)]
+        try:
+            for p in procs:
+                p.start()
+            outs, h0 = [], time.perf_counter()
+            while len(outs) < len(procs):
+                try:
+                    outs.append(q.get(timeout=1.0))
+                except queue.Empty:
+                    if any(p.exitcode not in (None, 0) for p in procs) or \
+                            time.perf_counter() - h0 > 180:
+                        fail(f"[train] a gated-collective rank failed or hung: exit codes "
+                             f"{[p.exitcode for p in procs]}")
+            outs.sort(key=lambda o: o["rank"])
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    return outs
+
+
+def phase_train_check() -> dict:
+    """Step 1 of the full-width cell through the kernels against the same
+    step through the plain attention on the card, per leaf; with the
+    mixes (kernel forward + plain backward, plain forward + kernel
+    backward) and the plain route at fp32 compute, which say where a gap
+    comes from.  A comparison, so it runs before the [train] path's
+    counts are reset."""
+    import torch
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.kernels.flash_attention import ref
+
+    cfg = _train_cfg()
+    plain = lambda q, k, v, window=None: ref.gqa_attention(q, k, v, window)
+    out = {}
+    for seed in TRAIN_CHECK_SEEDS:
+        loss_k, grads_k = _step_one_grads(cfg, seed)
+        loss_p, grads_p = _step_one_grads(cfg, seed, plain)
+        names = _leaf_names(grads_k)
+        for name, g in zip(names, tree_leaves(grads_k)):
+            if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0:
+                fail(f"[train] seed {seed}: parameter leaf {name} {tuple(g.shape)} got a zero or "
+                     f"non-finite gradient")
+        if abs(float(loss_k) - float(loss_p)) > 1e-2 * abs(float(loss_p)):
+            fail(f"[train] seed {seed}: step 1 loss {float(loss_k)} through the kernels, "
+                 f"{float(loss_p)} plain")
+        per_leaf = _leaf_gaps(grads_k, grads_p)
+        gaps = {"kernels": _worst(per_leaf, names)}
+        for what, route in (("kernel fwd + plain bwd", _attention_route(True, False)),
+                            ("plain fwd + kernel bwd", _attention_route(False, True))):
+            gaps[what] = _worst(_leaf_gaps(_step_one_grads(cfg, seed, route)[1], grads_p), names)
+            torch.cuda.empty_cache()
+        _, grads_f = _step_one_grads(cfg.replace(compute_dtype="float32"), seed, plain)
+        floor_per_leaf = _leaf_gaps(grads_p, grads_f)
+        to_fp32 = {"kernels": _worst(_leaf_gaps(grads_k, grads_f), names),
+                   "plain": _worst(floor_per_leaf, names)}
+        floor = to_fp32["plain"][0]
+        say(f"[train] step 1, seed {seed}: {len(names)} parameter leaves "
+            f"({sum(x.numel() for x in tree_leaves(grads_k))} parameters), every gradient "
+            f"nonzero and finite; loss {float(loss_k):.6f} through the kernels, "
+            f"{float(loss_p):.6f} through the plain attention; worst leaf gap to the plain "
+            f"route, of its scale: "
+            + ", ".join(f"{w} {e:.4g} ({n})" for w, (e, n) in gaps.items())
+            + f"; to the plain route at fp32 compute: "
+            + ", ".join(f"{w} {e:.4g} ({n})" for w, (e, n) in to_fp32.items())
+            + f"; limit min({TRAIN_GRAD_TOL}, bf16 floor {floor:.4g})")
+        say(f"[train] step 1, seed {seed}, per leaf: kernels - plain, max abs / plain's scale "
+            f"= of scale, share of entries that differ; plain bf16 - plain fp32, of scale: "
+            + "; ".join(f"{n} {d:.3g} / {sc:.3g} = {e:.3g}, {sh:.3g}; {fe:.3g}"
+                        for n, (e, d, sc, sh), (fe, *_) in zip(names, per_leaf, floor_per_leaf)))
+        err, name = gaps["kernels"]
+        if err > min(TRAIN_GRAD_TOL, floor):
+            fail(f"[train] seed {seed}: leaf {name}: kernel vs plain attention route {err:.3g} "
+                 f"of its gradient's scale, beyond {TRAIN_GRAD_TOL} or the bf16 floor {floor:.3g} "
+                 f"(the plain route's own largest gap to fp32 compute)")
+        out[seed] = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+                     "gaps": gaps, "to_fp32": to_fp32, "floor": floor}
+        del grads_k, grads_p, grads_f
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train() -> dict:
+    """The training path on the card; returns its numbers for the
+    ``[time]`` lines and the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.core.metrics import ccr
+    from repro_torch.examples import fl_llm_finetune
+    from repro_torch.launch import fl_train
+
+    cfg = _train_cfg()
+    full = cfg.replace(num_layers=40)
+    say(f"[train] minicpm_2b at its published width: d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads ({cfg.num_kv_heads} kv) of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} (tied), {cfg.compute_dtype} compute, {cfg.param_dtype} params; "
+        f"reduced: num_layers {full.num_layers} -> {cfg.num_layers}; batch {TRAIN['batch']} x "
+        f"{TRAIN['seq']} tokens")
+
+    # 1. make_train_step, 5 steps, twice from one seed
+    _train_run(cfg)                                           # warm-up: cuBLAS, allocator
+    torch.cuda.reset_peak_memory_stats()
+    a = _train_run(cfg)
+    b = _train_run(cfg)
+    same = a["losses"] == b["losses"] and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a["params"]), tree_leaves(b["params"])))
+    if not same:
+        fail(f"[train] two runs from one seed differ: losses {a['losses']} and {b['losses']}")
+    if not a["losses"][-1] < a["losses"][0]:
+        fail(f"[train] the loss did not fall over {TRAIN['steps']} steps: {a['losses']}")
+    counts = a["counts"]
+    if counts["flash_attention"] <= 0 or counts["flash_attention_bwd"] <= 0:
+        fail(f"[train] the train step did not go through the attention kernels: {counts}")
+    step_s = float(np.median(a["step_s"]))
+    tok_s = TRAIN["batch"] * TRAIN["seq"] / step_s
+    say(f"[train] make_train_step x {TRAIN['steps']} on one repeated batch, lr {TRAIN['lr']}: "
+        f"losses "
+        f"{[round(x, 4) for x in a['losses']]}, grad norms "
+        f"{[round(x, 4) for x in a['grad_norms']]}; two runs from one seed bit-equal; "
+        f"median {step_s:.4f} s a step, {tok_s:.1f} tokens/s; launches forward "
+        f"{counts['flash_attention']}, backward {counts['flash_attention_bwd']}, "
+        f"grad_diff_norm {counts['grad_diff_norm']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del a, b
+    torch.cuda.empty_cache()
+
+    # 2. make_fl_train_step, P = 2, vafl and afl
+    fl = {}
+    for alg in ("vafl", "afl"):
+        from repro_torch.kernels.grad_diff_norm import ops as gd_ops
+        before = gd_ops.launches
+        h0 = time.perf_counter()
+        infos = fl_train.run("minicpm_2b", smoke=False, steps=FL_TRAIN["steps"],
+                             pods=FL_TRAIN["pods"], batch_per_pod=FL_TRAIN["batch_per_pod"],
+                             seq=TRAIN["seq"], lr=TRAIN["lr"], algorithm=alg, device="cuda",
+                             cfg=cfg, verbose=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - h0
+        gd = gd_ops.launches - before
+        if gd != FL_TRAIN["steps"]:
+            fail(f"[train] fl step {alg}: {gd} grad_diff_norm launches, expected one a step")
+        masks = [i["mask"].tolist() for i in infos]
+        if any(not 1 <= sum(m) <= FL_TRAIN["pods"] for m in masks) or \
+                (alg == "afl" and any(sum(m) != FL_TRAIN["pods"] for m in masks)):
+            fail(f"[train] fl step {alg}: masks {masks}")
+        fl[alg] = {"s_per_step": secs / FL_TRAIN["steps"], "launches": gd,
+                   "synced": [int(sum(m)) for m in masks]}
+        say(f"[train] make_fl_train_step {alg}, P = {FL_TRAIN['pods']} x "
+            f"{FL_TRAIN['batch_per_pod']} x {TRAIN['seq']} tokens: V {[[float(f'{v:.5g}') for v in i['V']] for i in infos]}, "
+            f"masks {masks}, silos synced {fl[alg]['synced']}, losses "
+            f"{[round(float(i['loss']), 4) for i in infos]}, {secs / FL_TRAIN['steps']:.4f} s a "
+            f"step (the first step's warm-up included), grad_diff_norm launches {gd}")
+
+    # 3. the gated collective on two spawned ranks
+    h0 = time.perf_counter()
+    outs = _gated_two_ranks()
+    for j, pods in enumerate(GATED_PODS):
+        vals = [GATED_VALS[p] for p in pods]
+        wts = [GATED_WTS[p] for p in pods]
+        mean = sum(vals) / len(vals)
+        sel = [1.0 if v >= mean else 0.0 for v in vals]
+        agg = (sum(s * w * p for s, w, p in zip(sel, wts, pods))
+               / sum(s * w for s, w in zip(sel, wts)))
+        got = [o["cases"][j] for o in outs]
+        if [c["sel"] for c in got] != sel or not all(c["any"] and c["sync"] for c in got) or \
+                any(abs(x - agg) > 1e-5 for c in got for x in c["agg"]) or \
+                any(c["device"] != "cuda" for c in got):
+            fail(f"[train] gated collective, pods {pods}: {got}, expected selection {sel}, "
+                 f"aggregate {agg}")
+        say(f"[train] gated collective, 2 ranks (gloo, CUDA tensors), the reference test's pods "
+            f"{list(pods)}: selection {[c['sel'] for c in got]}, aggregate {got[0]['agg'][0]} "
+            f"(expected {agg}), collective bytes a rank {got[0]['bytes']}, counts "
+            f"{got[0]['counts']}")
+    for o in outs:
+        if abs(o["pod_value"] - o["pod_value_plain"]) > 1e-4 * abs(o["pod_value_plain"]):
+            fail(f"[train] pod_values on rank {o['rank']}: {o['pod_value']} against "
+                 f"{o['pod_value_plain']}")
+    gated_s = time.perf_counter() - h0
+
+    # 4. the federated LM example, afl against vafl
+    h0 = time.perf_counter()
+    res = fl_llm_finetune.run(device="cuda", verbose=False)
+    ex_s = time.perf_counter() - h0
+    afl, vafl = res["afl"], res["vafl"]
+    for name, r in res.items():
+        if not (np.isfinite(r.best_acc) and 0.0 < r.best_acc <= 1.0):
+            fail(f"[train] FL LM example {name}: next-token accuracy {r.best_acc}")
+    if vafl.comm.model_uploads > afl.comm.model_uploads:
+        fail(f"[train] FL LM example: vafl uploaded more than afl ({vafl.comm.model_uploads} > "
+             f"{afl.comm.model_uploads})")
+    c = ccr(afl.comm.model_uploads, vafl.comm.model_uploads)
+    say(f"[train] FL LM example (minicpm_2b smoke, vocab 128, 3 silos, 6 rounds): afl uploads "
+        f"{afl.comm.model_uploads}, next-token acc {afl.best_acc:.4f}; vafl uploads "
+        f"{vafl.comm.model_uploads}, next-token acc {vafl.best_acc:.4f}, CCR {c:.2%}; "
+        f"{ex_s:.2f} s for both")
+    return {"step_s": step_s, "tok_s": tok_s, "counts": counts, "fl": fl, "gated_s": gated_s,
+            "example_s": ex_s, "ccr": c}
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (src/repro_torch is missing)")
@@ -2328,6 +2836,16 @@ def main() -> None:
     figures = phase_figures()
     fig_counts = read()                          # read just after the figures path
     mark("figures")
+    fa_bwd_rows = []
+    phase_flash_backward(fa_bwd_rows)
+    train_check = phase_train_check()
+    read = _reset_launches()
+    train = phase_train()
+    tr_counts = read()                           # read just after the train path
+    mark("train")
+    if min(tr_counts["flash_attention"], tr_counts["flash_attention_bwd"],
+           tr_counts["grad_diff_norm"]) <= 0:
+        fail(f"a kernel of the train path never launched: {tr_counts}")
     for what, counts in (("round-scenario", rs_counts), ("checkpoint", ck_counts),
                          ("obs", obs_counts), ("fl-serve", fs_counts), ("fl-wire", fw_counts)):
         if counts["grad_diff_norm"] <= 0 or counts["topk_quant"] <= 0:
@@ -2335,8 +2853,8 @@ def main() -> None:
     for what, counts in (("round-scenario", rs_counts), ("checkpoint", ck_counts),
                          ("obs", obs_counts), ("fl-serve", fs_counts), ("fl-wire", fw_counts),
                          ("figures", fig_counts)):
-        if counts["flash_attention"] or counts["linear_scan"]:
-            fail(f"the {what} path launched a serving kernel: {counts}")
+        if counts["flash_attention"] or counts["flash_attention_bwd"] or counts["linear_scan"]:
+            fail(f"the {what} path launched an LLM kernel: {counts}")
     if fig_counts["grad_diff_norm"] <= 0:
         fail(f"the figures' vafl runs never launched grad_diff_norm: {fig_counts}")
     # rwkv6_3b's prefill-vs-decode check is gated in fp32: at bf16 the
@@ -2350,7 +2868,7 @@ def main() -> None:
     say("[time] phases (host seconds): " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 
-    for row in list(gd_rows.values()) + list(tq_rows.values()) + fa_rows + ls_rows:
+    for row in list(gd_rows.values()) + list(tq_rows.values()) + fa_rows + ls_rows + fa_bwd_rows:
         say("[time] " + json.dumps(row))
     for key, row in tree_rows.items():
         say("[time] " + json.dumps(dict(row, name="tree_grad_diff_sq_norm")))
@@ -2442,7 +2960,33 @@ def main() -> None:
             f"{st['decode_tok_per_s']:.2f} tok/s ({SERVE['batch']} x {SERVE['gen']} tokens in "
             f"{st['decode_s']:.4f} s); {st['launches']} {row['name']} launches x {row['ms']:.4f} ms "
             f"= {share:.1%} of the prefill; peak device memory {st['peak_gb']:.2f} GB")
-    say(json.dumps({"kernels": [main_gd, main_tq, main_fa, main_ls]}))
+    # the backward's row: the train path's shape (minicpm_2b, bf16, no
+    # window); its launches are the [train] path's, one 5-step
+    # make_train_step run's beside them
+    bwd_main = next(r for r in fa_bwd_rows if r["shape"][2] == 36 and r["window"] is None
+                    and r["dtype"] == "bfloat16")
+    bwd_sc = next(r for r in fa_bwd_rows if r["shape"][2] == 24 and r["window"] is None
+                  and r["dtype"] == "bfloat16")
+    main_bwd = dict(bwd_main, launches=tr_counts["flash_attention_bwd"],
+                    train_step_run_launches=train["counts"]["flash_attention_bwd"],
+                    step_one_worst_leaf_gap={seed: c["gaps"]["kernels"]
+                                             for seed, c in train_check.items()},
+                    starcoder2_shape=bwd_sc["shape"], starcoder2_ms=bwd_sc["ms"],
+                    starcoder2_plain_ms=bwd_sc["plain_ms"], starcoder2_bound_ms=bwd_sc["bound_ms"],
+                    starcoder2_library_ms=bwd_sc["library_ms"])
+    main_gd["train_launches"] = tr_counts["grad_diff_norm"]
+    main_fa["train_launches"] = tr_counts["flash_attention"]
+    say(f"[time] train (host clock, synchronized): make_train_step minicpm_2b at full width, "
+        f"2 layers, {TRAIN['batch']} x {TRAIN['seq']} tokens: {train['step_s']:.4f} s a step, "
+        f"{train['tok_s']:.1f} tokens/s; make_fl_train_step P = {FL_TRAIN['pods']}: "
+        + ", ".join(f"{a} {v['s_per_step']:.4f} s a step" for a, v in train["fl"].items())
+        + f"; gated collective on 2 spawned ranks {train['gated_s']:.2f} s; FL LM example "
+        f"{train['example_s']:.2f} s (CCR {train['ccr']:.2%}); backward kernel "
+        f"{bwd_main['ms']:.4f} ms at {bwd_main['shape']} bf16 (bound {bwd_main['bound_ms']:.4f}, "
+        f"SDPA backward {bwd_main['library_ms']:.4f}), {bwd_sc['ms']:.4f} ms at "
+        f"{bwd_sc['shape']} (bound {bwd_sc['bound_ms']:.4f}, SDPA backward "
+        f"{bwd_sc['library_ms']:.4f})")
+    say(json.dumps({"kernels": [main_gd, main_tq, main_fa, main_ls, main_bwd]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

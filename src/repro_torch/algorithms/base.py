@@ -1,6 +1,5 @@
 """The pluggable FL algorithm protocol.  Port of
-``repro.algorithms.base`` without the traced SPMD gate
-(``gate_stacked``), which comes with the distributed step.
+``repro.algorithms.base``.
 
 An algorithm is two small objects behind a string registry
 (``get_algorithm("vafl")``):
@@ -8,7 +7,9 @@ An algorithm is two small objects behind a string registry
 * ``UploadPolicy``: the "should this update ship?" decision (the
   paper's Eq. 1-3 gating), in two forms: a *scalar* form (``decide``)
   consumed in arrival order by the event runtime, and a *stacked* form
-  (``round_mask`` over all clients) for the round and barrier runtimes.
+  (``round_mask`` over all clients) for the round and barrier runtimes,
+  and a *silo* form (``gate_stacked``: tensors in, a float mask out) for
+  the cross-silo training step (``repro_torch.launch.steps``).
   It declares which inputs it needs (``needs_values`` / ``needs_norms``)
   so the runtime computes nothing the algorithm won't read; AFL pays
   nothing for VAFL's value term.
@@ -23,6 +24,7 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 _STALE_TABLE_SIZE = 4096
 
@@ -111,6 +113,20 @@ class UploadPolicy:
         round, plus the per-client values to log in the round record
         (None when the algorithm has none)."""
         return ctx.part.copy(), None
+
+    # ------------------------------------------------ cross-silo step ---
+    def gate_stacked(self, values=None, sq_norms=None, server_delta_sq=None):
+        """The silo gate of ``make_fl_train_step``: a float mask over the
+        leading silo axis, from device tensors (``values`` (P,) Eq. 1 V,
+        ``sq_norms`` (P,), ``server_delta_sq`` a scalar).  Callers pass at
+        least one stacked input; the default gate (afl, fedavg,
+        fedasync: each step is a barrier, staleness 0) shapes its
+        all-ones mask off whichever arrived."""
+        ref = values if values is not None else sq_norms
+        if ref is None:
+            raise ValueError("gate_stacked needs at least one stacked input "
+                             "(values or sq_norms) to shape the silo mask")
+        return torch.ones_like(ref)
 
 
 class Aggregator:

@@ -1,5 +1,5 @@
 """The paper's algorithm family as protocol plugins.  Port of
-``repro.algorithms.builtin`` without the traced SPMD gates.
+``repro.algorithms.builtin``.
 
 * ``afl``    — plain asynchronous FL: every finished client uploads.
 * ``vafl``   — the paper's contribution: Eq. 1 value, Eq. 2 above-mean gate.
@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.algorithms.base import Algorithm, RoundContext, UploadPolicy
 from repro_torch.algorithms.registry import _register_builtin
@@ -54,6 +55,9 @@ class VAFLPolicy(UploadPolicy):
             mask = ctx.part & (v_np >= v_part.max())
         return mask, [float(v) for v in v_np]
 
+    def gate_stacked(self, values=None, sq_norms=None, server_delta_sq=None):
+        return (values >= torch.mean(values)).float()
+
 
 class EAFLMPolicy(UploadPolicy):
     """Eq. 3: suppress 'lazy' clients whose gradient norm falls at/below
@@ -80,6 +84,10 @@ class EAFLMPolicy(UploadPolicy):
         ctx.comm.record_report(int(ctx.part.sum()))
         mask = ctx.part & (norms > thr).cpu().numpy()
         return mask, [float(v) for v in norms.cpu().numpy()]
+
+    def gate_stacked(self, values=None, sq_norms=None, server_delta_sq=None):
+        den = torch.tensor(np.float32(self.alpha ** 2 * self.beta), device=sq_norms.device)
+        return (sq_norms > server_delta_sq / den).float()
 
 
 _register_builtin(Algorithm(

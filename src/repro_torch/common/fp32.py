@@ -13,6 +13,11 @@ amplifier and every mixed parameter:
 * ``fma``: XLA fuses ``a * x + y`` into one fused multiply-add, rounded
   once; torch rounds the product and then the sum.
 
+And one rounds differently in eager PyTorch on the CPU than anywhere
+else: ``sqrt``.  torch's vectorised CPU fp32 square root is not always
+correctly rounded (sqrt(8.579716) came out one ulp low), while XLA's and
+CUDA's are; Adam's denominator reads it for every parameter.
+
 On the card a third setting decides the bits: ``ieee()`` keeps the
 model's matmuls and cuDNN's convolutions in IEEE fp32 whatever the
 process-wide TF32 flags say.
@@ -105,3 +110,13 @@ def fma(a: float, x, y):
                        torch.full_like(s, float("-inf")))
     s = torch.where((err != 0) & even, torch.nextafter(s, away), s)
     return s.float()
+
+
+def sqrt(x):
+    """Correctly rounded fp32 square root of an fp32 tensor on either
+    device.  On the CPU it is taken in float64 and rounded once more,
+    which is exact for a square root (53 >= 2 * 24 + 2 bits); CUDA's
+    ``sqrt`` is correctly rounded already."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)

@@ -89,6 +89,11 @@ def tree_sq_norm(a):
                      _device(a))
 
 
+def global_norm(a):
+    """L2 norm of all leaves: the square root of ``tree_sq_norm``'s fp32 sum."""
+    return torch.sqrt(tree_sq_norm(a))
+
+
 def tree_sq_diff_norm(a, b):
     """||a - b||^2, one leaf at a time (fp32 accumulation)."""
     return _fp32_sum((torch.sum(torch.square(x.float() - y.float()))

@@ -13,7 +13,10 @@
 // nor the (B*H, S, D) transpose of the TPU wrapper is materialised.
 // Rows and keys past S (a ragged last tile) are masked, so any S works;
 // key tiles wholly above the diagonal or wholly outside the window are
-// never loaded.
+// never loaded.  For training, both routes also write each row's
+// logsumexp of the scaled scores when given an lse buffer, which the
+// backward (flash_attention_bwd.cu) recomputes the weights from; serving
+// passes none and runs the same code with one untaken branch a row.
 //
 // Bound on an H100: operations.  The causal product costs about
 // 2 * B * H * S^2 * D multiply-adds over about 2 * B * S * (H + 2 KV) * D
@@ -72,6 +75,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                            // (B, H, S) fp32 or null
   long long sq[3], sk[3], sv[3], so[3];  // element strides over (b, s, head)
   int S, H, KV, window;                  // window <= 0: none
   float scale;
@@ -254,6 +258,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
     const int row = wq0 + g + 8 * i;
     if (row >= a.S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    // the weights were exp((s - m) scale), so the row's logsumexp of the
+    // scaled scores is m scale + log l
+    if (a.lse != nullptr && c == 0)
+      a.lse[((long long)b * a.H + h) * a.S + row] = m[i] * a.scale + logf(l[i]);
     __nv_bfloat16* orow = og + row * a.so[1] + 2 * c;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -386,6 +394,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= a.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && tx == 0)
+      a.lse[((long long)b * a.H + h) * a.S + qp] = m[i] + logf(l[i]);  // m is scaled here
 #pragma unroll
     for (int c = 0; c < CPT; ++c) og[qp * a.so[1] + tx + 16 * c] = acc[i][c] / den;
   }
@@ -417,12 +427,15 @@ int launch(const Args& a, int B, int dtype, cudaStream_t s) {
 // element strides, (b, s, head) of q, k, v, o in that order; the head
 // dim is unit-stride in all four.  For bfloat16 every row of q, k, v
 // must start 16-byte aligned (base pointers and strides), and o's rows
-// 4-byte aligned.  window <= 0 means no window.  Returns the CUDA error
-// of the launch (0 on success).
+// 4-byte aligned.  window <= 0 means no window.  lse, when not null,
+// receives each row's logsumexp of the scaled scores, fp32 (B, H, S)
+// contiguous, which the backward (csrc/flash_attention_bwd.cu) reads;
+// serving passes null.  Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int S, int H, int KV, int hd,
                                    const long long* strides, int window, float scale,
-                                   void* stream) {
+                                   float* lse, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -430,6 +443,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = lse;
   for (int i = 0; i < 3; ++i) {
     a.sq[i] = strides[i];
     a.sk[i] = strides[3 + i];

@@ -1,20 +1,35 @@
-"""Public wrapper of the flash_attention kernel: the model layer's GQA
-layout in, causal attention out.  Port of
+"""Public wrapper of the flash_attention kernels: the model layer's GQA
+layout in, causal attention out, with its gradient.  Port of
 ``repro.kernels.flash_attention.ops.gqa_flash_attention``.
 
 ``gqa_flash_attention`` takes q (B, S, H, hd) and k, v (B, S, KV, hd) as
 they come out of the attention layer's projections and returns
-(B, S, H, hd) in q's dtype.  CUDA tensors launch the kernel in
-``csrc/flash_attention.cu``, which reads all three through their strides
-and maps query head h to kv head ``h // (H // KV)``, so nothing is
-repeated or transposed; any S works (the kernel masks the ragged edge).
-bf16 inputs take the tensor-core route, whose 16-byte asynchronous
-copies need every row of q, k and v 16-byte aligned: a tensor whose base
-pointer or (b, s, head) strides do not allow that is first copied to a
-contiguous one (``needs_copy``).  The strided views of a fused qkv
-projection are aligned and read in place.  CPU tensors take the plain
-version in ``ref.py``.  Nothing else falls back: a CUDA tensor the
-kernel does not take raises.
+(B, S, H, hd) in q's dtype.  It is ``FlashAttention``, a
+``torch.autograd.Function``:
+
+* forward: CUDA tensors launch the kernel in ``csrc/flash_attention.cu``,
+  which reads all three through their strides and maps query head h to
+  kv head ``h // (H // KV)``, so nothing is repeated or transposed; any S
+  works (the kernel masks the ragged edge).  bf16 inputs take the
+  tensor-core route, whose 16-byte asynchronous copies need every row of
+  q, k and v 16-byte aligned: a tensor whose base pointer or (b, s,
+  head) strides do not allow that is first copied to a contiguous one
+  (``needs_copy``).  With grad enabled the launch also writes each row's
+  logsumexp ``lse`` (fp32, (B, H, S)) for the backward; under
+  ``torch.no_grad`` (serving) it writes none and is the same launch as
+  before training existed.
+* backward: CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (three
+  kernels, no atomics: dK and dV a key tile, then dQ a query tile) from
+  q, k, v, o, dO and lse, and return gradients in the input dtype.
+* vmap: a ``torch.func.vmap`` over the Function (the FL runtimes'
+  per-client loss) folds the vmapped axis into B and calls the Function
+  once, since the kernel cannot read a batched tensor's storage.
+
+CPU tensors take the plain versions in ``ref.py`` inside the same
+Function (forward, and autograd through it for the backward), so the
+gradient plumbing and the vmap rule run on the CPU too.  Nothing else
+falls back: a CUDA tensor the kernels do not take raises, and so does a
+backward on the card of a forward that kept no ``lse``.
 """
 from __future__ import annotations
 
@@ -22,13 +37,16 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
-# kernel launches since the last reset (chip_smoke.py reads it to show
-# that a run went through the kernel)
+# kernel launches since the last reset, forward and backward (one a
+# wrapper call; a backward call is three CUDA launches); chip_smoke.py
+# reads them to show that a run went through the kernels
 launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -38,7 +56,17 @@ HEAD_DIMS = (32, 64, 128)
 def _kernel():
     fn = build.library("flash_attention").flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    fn = build.library("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -56,36 +84,121 @@ def needs_copy(x) -> bool:
     return x.data_ptr() % 16 != 0 or any(st * esize % 16 for st in x.stride()[:3])
 
 
-def _launch(q, k, v, window):
-    global launches
+def _check_launch(q):
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
     B, S, H, hd = q.shape
-    KV = k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if max(B, H) > 65535:
         raise ValueError(f"flash_attention takes at most 65535 batch rows and heads (grid), "
                          f"got B={B}, H={H}")
+
+
+def _launch(q, k, v, window, need_lse=False):
+    """The forward kernel: (o, lse), lse None unless ``need_lse``."""
+    global launches
+    _check_launch(q)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
     q, k, v = (x.clone(memory_format=torch.contiguous_format) if needs_copy(x) else x
                for x in (q, k, v))
     fn = _kernel()
     with torch.cuda.device(q.device):
         out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+        lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+               if need_lse else None)
         strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                            *v.stride()[:3], *out.stride()[:3])
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
                  B, S, H, KV, hd, ctypes.addressof(strides), window or 0, 1.0 / hd ** 0.5,
+                 lse.data_ptr() if lse is not None else None,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return out, lse
+
+
+def _launch_bwd(q, k, v, o, do, lse, window):
+    """The backward kernels: (dq, dk, dv) in q's dtype."""
+    global bwd_launches
+    _check_launch(q)
+    if not q.dtype == o.dtype == do.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention backward takes q, o, dO of one dtype and fp32 lse, "
+                        f"got {q.dtype}, {o.dtype}, {do.dtype}, {lse.dtype}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    q, k, v, o, do, lse = (x.contiguous() for x in (q, k, v, o, do, lse))
+    fn = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dvec = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 _DTYPES[q.dtype], B, S, H, KV, hd, window or 0, 1.0 / hd ** 0.5,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal GQA attention with its gradient: the kernels on CUDA
+    tensors, the plain versions on CPU tensors.  ``apply(q, k, v,
+    window, need_lse)`` returns (o, lse); lse is None on the CPU and
+    unless ``need_lse``."""
+
+    @staticmethod
+    def forward(q, k, v, window, need_lse):
+        if q.device.type == "cpu":
+            return ref.gqa_attention(q, k, v, window=window), None
+        if q.device.type != "cuda":
+            raise RuntimeError(f"flash_attention runs on CPU or CUDA tensors, not {q.device}")
+        return _launch(q, k, v, window, need_lse)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, window, _ = inputs
+        o, lse = output
+        ctx.window = window
+        if lse is not None:
+            ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = ref.gqa_attention_bwd(q, k, v, do, window=ctx.window)
+        elif lse is None:
+            raise RuntimeError("flash_attention backward on the card needs the forward's "
+                               "logsumexp: the forward ran with grad disabled")
+        else:
+            dq, dk, dv = _launch_bwd(q, k, v, o, do, lse, ctx.window)
+        return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, window, need_lse):
+        n = info.batch_size
+
+        def fold(x, d):   # (n, B, ...) -> (n B, ...): the vmapped axis joins the batch
+            x = x.unsqueeze(0).expand((n,) + tuple(x.shape)) if d is None else x.movedim(d, 0)
+            return x.reshape((n * x.shape[1],) + tuple(x.shape[2:]))
+
+        o, lse = FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                                      fold(v, in_dims[2]), window, need_lse)
+        o = o.reshape((n, -1) + tuple(o.shape[1:]))
+        if lse is None:
+            return (o, None), (0, None)
+        return (o, lse.reshape((n, -1) + tuple(lse.shape[1:]))), (0, 0)
 
 
 def gqa_flash_attention(q, k, v, *, window=None):
     """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd), causal; ``window``
-    keeps keys with ``q - k < window``."""
+    keeps keys with ``q - k < window``.  Differentiable in q, k and v."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"need q (B,S,H,hd) and k, v (B,S,KV,hd), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -98,8 +211,4 @@ def gqa_flash_attention(q, k, v, *, window=None):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    if q.device.type == "cpu":
-        return ref.gqa_attention(q, k, v, window=window)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention runs on CPU or CUDA tensors, not {q.device}")
-    return _launch(q, k, v, window)
+    return FlashAttention.apply(q, k, v, window, torch.is_grad_enabled())[0]

@@ -4,7 +4,8 @@ card.  It computes what ``repro.kernels.flash_attention.ref.attention``
 computes (causal softmax attention in fp32, scale ``1/sqrt(D)``, masked
 scores at -1e30, an optional sliding window ``q - k < window``), on the
 model layer's layout: q (B, S, H, hd) and k, v (B, S, KV, hd), query head
-h reading kv head ``h // (H // KV)``."""
+h reading kv head ``h // (H // KV)``.  ``gqa_attention_bwd`` is its
+gradient by autograd, the plain version of the backward kernel."""
 from __future__ import annotations
 
 import torch
@@ -17,7 +18,8 @@ def attention(q, k, v, window=None):
     in q's dtype."""
     S, D = q.shape[1], q.shape[2]
     scale = 1.0 / (D ** 0.5)
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    ct = torch.promote_types(q.dtype, torch.float32)   # fp32, or fp64 for gradcheck
+    s = torch.einsum("bqd,bkd->bqk", q.to(ct), k.to(ct)) * scale
     qpos = torch.arange(S, device=q.device)[:, None]
     kpos = torch.arange(S, device=q.device)[None, :]
     mask = qpos >= kpos
@@ -25,7 +27,7 @@ def attention(q, k, v, window=None):
         mask &= (qpos - kpos) < window
     s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(ct)).to(q.dtype)
 
 
 def gqa_attention(q, k, v, window=None):
@@ -40,3 +42,12 @@ def gqa_attention(q, k, v, window=None):
 
     o = attention(to_bh(q), to_bh(kq), to_bh(vq), window=window)
     return o.reshape(B, H, S, hd).permute(0, 2, 1, 3)
+
+
+def gqa_attention_bwd(q, k, v, do, window=None):
+    """Gradients (dq, dk, dv) of ``gqa_attention`` against the output
+    gradient ``do``, by autograd through it, in the inputs' dtypes."""
+    with torch.enable_grad():
+        qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = gqa_attention(*qkv, window=window)
+        return torch.autograd.grad(o, qkv, do)

@@ -6,10 +6,12 @@ KV caches: {"k": (B, C, KV, hd), "v": ...} where C is the cache length
 (seq_len, or the sliding window for long-context serving).
 
 The causal self-attention of prefill and training runs through the
-flash_attention kernel's wrapper: on CUDA the hand-written kernel, on
-the CPU its plain version.  Decode (one query against the cache) has no
-kernel in the reference either and stays plain PyTorch.  MLA and
-cross-attention wait (ROADMAP.md §1 item 11).
+flash_attention kernels' autograd Function (``kernels/flash_attention/
+ops.py``): on CUDA the hand-written forward kernel, and in training its
+hand-written backward; on the CPU their plain versions.  Decode (one
+query against the cache) has no kernel in the reference either and
+stays plain PyTorch.  MLA and cross-attention wait (ROADMAP.md §1 item
+11).
 """
 from __future__ import annotations
 
@@ -70,14 +72,18 @@ def _out_proj(p, attn_out):
 
 def attention_forward(p, cfg, x, positions, *, window: Optional[int] = None,
                       kv_override=None, return_kv: bool = False):
-    """Training/prefill causal self-attention.
+    """Training/prefill causal self-attention, differentiable in ``p``
+    and ``x``.
 
     ``positions`` (S,) are the RoPE positions and must be 0..S-1, as in
     every caller of the reference: the kernel masks by index.  The
-    reference's ``q_chunk`` (a memory-saving scan over query blocks) has
-    no counterpart: the kernel never materialises the S x S scores.
-    return_kv: also return the post-rope (k, v), which prefill packs into
-    the decode cache.
+    attention runs through ``flash.gqa_flash_attention`` on both devices:
+    with grad enabled its forward keeps the logsumexp that the backward
+    kernel reads, and under ``torch.no_grad`` (the serving prefill) it is
+    the forward launch alone.  The reference's ``q_chunk`` (a
+    memory-saving scan over query blocks) has no counterpart: neither
+    kernel materialises the S x S scores.  return_kv: also return the
+    post-rope (k, v), which prefill packs into the decode cache.
     """
     if kv_override is not None:
         raise NotImplementedError("cross-attention (kv_override) is not ported to "

@@ -1,6 +1,6 @@
-"""Decoder stack for serving: dense GQA (starcoder2 style) and RWKV6.
-Port of the ``("attn", False)`` and ``("rwkv6", False)`` layer families
-of ``repro.models.decoder``.
+"""Decoder stack for training and serving: dense GQA (starcoder2 and
+minicpm style) and RWKV6.  Port of the ``("attn", False)`` and
+``("rwkv6", False)`` layer families of ``repro.models.decoder``.
 
 Layers are grouped into maximal runs of identical block type with
 stacked parameters, as in the reference, so a reference tree carries
@@ -12,14 +12,26 @@ frontends, parallel blocks and qk-norm raise ``NotImplementedError``
 
 Public API (plain functions of (cfg, params, ...)):
   init_params(cfg, generator)
-  forward(cfg, params, tokens)                   -> logits, aux
+  forward(cfg, params, tokens, remat=True)       -> logits, aux
+  loss_fn(cfg, params, batch, remat=True)        -> loss, metrics
   prefill(cfg, params, tokens, cache_len)        -> last logits, cache, next pos
   init_cache(cfg, params, batch, cache_len)
   decode_step(cfg, params, cache, token, pos)    -> logits, cache
+
+``forward`` and ``loss_fn`` are differentiable in the parameters (the
+attention layer's kernels have a backward; RWKV6 trains on the CPU only,
+``models/recurrence.py``).  ``remat`` recomputes each layer's forward in
+the backward (``torch.utils.checkpoint``, non-reentrant) instead of
+keeping its activations, as the reference's ``jax.checkpoint`` of the
+scanned layer does; it acts only while grad is enabled and changes no
+number.  The reference's ``q_chunk`` and ``moe_dispatch`` have no
+counterpart (the attention kernels never materialise the scores; MoE is
+not ported).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.pytree import tree_map
 from repro_torch.models import attention as attn
@@ -166,17 +178,44 @@ def _apply_layer(cfg, lp, x, positions, tag, *, window=None, cache_len=None,
     return x + y * rs, lcache
 
 
-def forward(cfg, params, tokens):
-    """tokens (B, S).  Returns (logits (B, S, V), aux loss 0.0)."""
+def _train_layer(cfg, tag, lp, x, positions):
+    return _apply_layer(cfg, lp, x, positions, tag, window=cfg.sliding_window)[0]
+
+
+def forward(cfg, params, tokens, *, remat: bool = True):
+    """tokens (B, S).  Returns (logits (B, S, V), aux loss 0.0).  With
+    ``remat`` and grad enabled each layer is checkpointed."""
     check_supported(cfg)
     params = cast_params(cfg, params)
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    remat = remat and torch.is_grad_enabled()
     for gp, (tag, count) in zip(params["groups"], layer_groups(cfg)):
         for i in range(count):
-            x, _ = _apply_layer(cfg, _layer(gp, i), x, positions, tag,
-                                window=cfg.sliding_window)
+            if remat:
+                x = checkpoint(_train_layer, cfg, tag, _layer(gp, i), x, positions,
+                               use_reentrant=False)
+            else:
+                x = _train_layer(cfg, tag, _layer(gp, i), x, positions)
     return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ----------------------------------------------------------------- loss ---
+
+def loss_fn(cfg, params, batch, *, remat: bool = True):
+    """batch: {"tokens": (B, S), "labels": (B, S) with -1 = masked}.
+    Mean next-token NLL over the unmasked labels, from an fp32
+    ``log_softmax`` of the logits.  Returns (loss, {"nll", "aux"})."""
+    if "prefix_embeds" in batch or "encoder_embeds" in batch:
+        raise NotImplementedError("prefix_embeds / encoder_embeds are not ported to "
+                                  "repro_torch yet (ROADMAP.md §1 item 11)")
+    logits, aux = forward(cfg, params, batch["tokens"], remat=remat)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return loss, {"nll": loss, "aux": aux}
 
 
 # -------------------------------------------------------------- prefill ---

@@ -10,6 +10,10 @@ RWKV6's time-mix is an instance of the gated linear recurrence
 with a per-dim decay.  The prompt runs through the linear_scan kernel's
 wrapper (``linear_recurrence``): on CUDA the hand-written kernel, which
 steps through time exactly, on the CPU its plain sequential version.
+The kernel has no backward yet, so on CUDA ``linear_recurrence`` raises
+``NotImplementedError`` when grad is enabled and an input needs it,
+rather than train RWKV6 without the scan's gradient (ROADMAP.md §2 item
+4); on the CPU autograd runs through the plain version.
 The reference's chunked algorithm is a TPU decomposition of the same
 function and is not carried over.  Decode is one plain state update.
 Mamba2 and per-head decay wait (ROADMAP.md §1 item 11).
@@ -48,6 +52,11 @@ def linear_recurrence(q, k, v, log_a, u=None, include_current=True,
     if decay_per != "dim":
         raise NotImplementedError(f"decay_per={decay_per!r} (Mamba2) is not ported to "
                                   f"repro_torch yet (ROADMAP.md §1 item 11)")
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in (q, k, v, log_a, u))):
+        raise NotImplementedError("training through linear_recurrence on CUDA needs a "
+                                  "backward of the linear_scan kernel, not written yet "
+                                  "(ROADMAP.md §2 item 4)")
     return scan_ops.recurrence(q, k, v, log_a, u, include_current=include_current,
                                initial_state=initial_state)
 

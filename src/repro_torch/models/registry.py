@@ -2,8 +2,12 @@
 ``repro.models.registry``.
 
 ``ARCH_IDS`` lists every architecture of the reference's zoo; the port
-serves the ones in ``PORTED`` (``repro_torch/configs/<id>.py``).  The
-others raise ``NotImplementedError``: ROADMAP.md §1 item 11 queues them.
+has the ones in ``PORTED`` (``repro_torch/configs/<id>.py``): minicpm_2b
+trains and serves (dense MHA with muP-style scales and tied
+embeddings), starcoder2_3b trains and serves, rwkv6_3b serves (and
+trains on the CPU only, until the linear_scan kernel has a backward).
+The others raise ``NotImplementedError``: ROADMAP.md §1 item 11 queues
+them.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ ARCH_IDS = (
     "rwkv6_3b",
     "whisper_small",
 )
-PORTED = ("starcoder2_3b", "rwkv6_3b")
+PORTED = ("minicpm_2b", "starcoder2_3b", "rwkv6_3b")
 
 
 def normalize(arch: str) -> str:

@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)   # the suite runs a test process per core
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -103,6 +104,86 @@ class TestFlashAttentionPlain:
             fa_ops.gqa_flash_attention(q, q[:, :, :2], q[:, :, :2].double())
         with pytest.raises(ValueError):
             fa_ops.gqa_flash_attention(q, q, q, window=0)
+
+
+class TestFlashAttentionGrad:
+    """The autograd Function around the kernels, on the CPU: its gradient
+    (the plain backward, autograd through ``ref.gqa_attention``) against
+    ``jax.vjp`` of the reference's ``ref.attention`` on the same inputs,
+    its vmap rule against a loop, and a float64 gradcheck.  fp32 sums in
+    another order: 1e-5 of the gradients' scale."""
+
+    @staticmethod
+    def _ref_vjp(q, k, v, do, window):
+        B, S, H, hd = q.shape
+        G = H // k.shape[2]
+
+        def attn(jq, jk, jv):
+            to_bh = lambda x: jnp.transpose(x, (0, 2, 1, 3)).reshape(B * H, S, hd)
+            o = jfa_ref.attention(to_bh(jq), to_bh(jnp.repeat(jk, G, 2)),
+                                  to_bh(jnp.repeat(jv, G, 2)), window=window)
+            return jnp.transpose(o.reshape(B, H, S, hd), (0, 2, 1, 3))
+
+        _, vjp = jax.vjp(attn, *(jnp.asarray(x) for x in (q, k, v)))
+        return vjp(jnp.asarray(do))
+
+    @pytest.mark.parametrize("window", [None, 24])
+    @pytest.mark.parametrize("H,KV", [(4, 2), (4, 4)])
+    def test_grads_match_reference(self, window, H, KV):
+        B, S, hd = 2, 64, 32
+        q = randn(20, (B, S, H, hd))
+        k, v = (randn(21 + i, (B, S, KV, hd)) for i in range(2))
+        do = randn(23, (B, S, H, hd))
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+        before = fa_ops.bwd_launches
+        o = fa_ops.gqa_flash_attention(tq, tk, tv, window=window)
+        got = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+        assert fa_ops.bwd_launches == before            # CPU: the plain backward
+        for g, w in zip(got, self._ref_vjp(q, k, v, do, window)):
+            w = _np(w)
+            assert np.abs(_np(g) - w).max() <= 1e-5 * np.abs(w).max()
+
+    def test_bf16_grads_in_the_input_dtype(self):
+        B, S, H, KV, hd = 1, 40, 4, 2, 32
+        q, k, v = (torch.from_numpy(randn(30 + i, (B, S, h, hd), "bfloat16")).to(torch.bfloat16)
+                   .requires_grad_(True) for i, h in enumerate((H, KV, KV)))
+        o = fa_ops.gqa_flash_attention(q, k, v)
+        got = torch.autograd.grad(o.float().sum(), (q, k, v))
+        assert all(g.dtype == torch.bfloat16 for g in got)
+        want = fa_ref.gqa_attention_bwd(q.detach(), k.detach(), v.detach(), torch.ones_like(o))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+    @pytest.mark.parametrize("window", [None, 5])
+    def test_vmap_equals_a_loop(self, window):
+        n, B, S, H, KV, hd = 3, 2, 20, 4, 2, 32
+        q = torch.from_numpy(randn(40, (n, B, S, H, hd))).requires_grad_(True)
+        k = torch.from_numpy(randn(41, (n, B, S, KV, hd))).requires_grad_(True)
+        v = torch.from_numpy(randn(42, (B, S, KV, hd)))           # shared: in_dim None
+        f = lambda a, b: fa_ops.gqa_flash_attention(a, b, v, window=window)
+        o = torch.func.vmap(f)(q, k)
+        gq, gk = torch.autograd.grad(o.square().sum(), (q, k))
+        q2, k2 = (x.detach().requires_grad_(True) for x in (q, k))
+        o2 = torch.stack([f(q2[i], k2[i]) for i in range(n)])
+        gq2, gk2 = torch.autograd.grad(o2.square().sum(), (q2, k2))
+        for a, b in ((o, o2), (gq, gq2), (gk, gk2)):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("window", [None, 3])
+    def test_gradcheck_float64(self, window):
+        g = torch.Generator().manual_seed(0)
+        q = torch.randn(1, 7, 2, 32, dtype=torch.float64, generator=g, requires_grad=True)
+        k, v = (torch.randn(1, 7, 1, 32, dtype=torch.float64, generator=g, requires_grad=True)
+                for _ in range(2))
+        assert torch.autograd.gradcheck(
+            lambda a, b, c: fa_ops.gqa_flash_attention(a, b, c, window=window), (q, k, v))
+
+    def test_no_grad_forward_is_the_plain_forward(self):
+        q = torch.from_numpy(randn(50, (1, 16, 4, 32)))
+        k, v = (torch.from_numpy(randn(51 + i, (1, 16, 2, 32))) for i in range(2))
+        with torch.no_grad():
+            got = fa_ops.gqa_flash_attention(q, k, v)
+        assert torch.equal(got, fa_ref.gqa_attention(q, k, v)) and not got.requires_grad
 
 
 def _qkv_views(B, S, H, KV, hd, dtype, lead=0, pad=0):
@@ -570,3 +651,78 @@ def test_gpu_linear_scan_bf16_rows_not_16_byte_aligned(cuda, layout):
             buf[..., 1 + 64 * i:1 + 64 * (i + 1)] = x
         q, k, v = (buf[..., 1 + 64 * i:1 + 64 * (i + 1)] for i in range(3))
     _check_scan(q, k, v, la, u, s0, False)
+
+
+# the backward kernel (csrc/flash_attention_bwd.cu) against the plain
+# backward: fp32 at 1e-4 of the gradients' scale (sums in another order,
+# the forward's exp against the backward's), bf16 at 2e-2 (the gradients
+# are rounded to bf16, as the forward's output is); the scale is floored
+# at 1e-2, since at S = 1 the exact dq and dk are 0 (one key: the softmax
+# is constant) and the kernel's are its rounding, about 1e-7
+FA_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _grad_case(cuda, seed, B, S, H, KV, hd, dt):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dt) for _ in range(2))
+    do = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dt)
+    return q, k, v, do
+
+
+def _kernel_grads(q, k, v, do, window):
+    req = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    o = fa_ops.gqa_flash_attention(*req, window=window)
+    return torch.autograd.grad(o, req, do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (2, 256, 8, 2, 128, None), (1, 1000, 4, 1, 64, None), (2, 300, 4, 4, 32, 64),
+    (1, 512, 6, 2, 128, 100), (1, 65, 36, 36, 64, None), (1, 1, 2, 1, 32, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_flash_attention_backward_matches_plain(cuda, B, S, H, KV, hd, window, dtype):
+    dt = TORCH_DT[dtype]
+    q, k, v, do = _grad_case(cuda, S, B, S, H, KV, hd, dt)
+    before = fa_ops.bwd_launches
+    got = _kernel_grads(q, k, v, do, window)
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_launches == before + 1
+    want = fa_ref.gqa_attention_bwd(q, k, v, do, window=window)
+    for a, b in zip(got, want):
+        assert a.dtype == dt and bool(torch.isfinite(a).all())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= FA_BWD_TOL[dtype] * max(float(b.float().abs().max()), 1e-2), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_flash_attention_backward_reproducible(cuda, dtype):
+    """No atomics: two backward launches on one input give the same bits."""
+    q, k, v, do = _grad_case(cuda, 7, 2, 700, 24, 2, 128, TORCH_DT[dtype])
+    a, b = _kernel_grads(q, k, v, do, None), _kernel_grads(q, k, v, do, None)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_gpu_serving_forward_unchanged_by_the_lse(cuda):
+    """The forward with grad enabled (writing the logsumexp) and under
+    no_grad (serving: no lse) give the same output bits."""
+    q, k, v, _ = _grad_case(cuda, 8, 2, 333, 8, 2, 64, torch.bfloat16)
+    with torch.no_grad():
+        served = fa_ops.gqa_flash_attention(q, k, v)
+    trained = fa_ops.gqa_flash_attention(*(x.requires_grad_(True) for x in (q, k, v)))
+    assert torch.equal(served, trained.detach())
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_vmap_equals_a_loop(cuda):
+    q, k, v, _ = _grad_case(cuda, 9, 3, 96, 4, 2, 32, torch.float32)
+    q = q.requires_grad_(True)
+    f = lambda a: fa_ops.gqa_flash_attention(a.unsqueeze(0), k[:1], v[:1])[0]
+    o = torch.func.vmap(f)(q)
+    g, = torch.autograd.grad(o.sum(), q)
+    q2 = q.detach().requires_grad_(True)
+    o2 = torch.stack([f(q2[i]) for i in range(3)])
+    g2, = torch.autograd.grad(o2.sum(), q2)
+    assert torch.equal(o, o2) and torch.equal(g, g2)

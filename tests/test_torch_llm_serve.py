@@ -41,7 +41,7 @@ from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.factory import ParamFactory  # noqa: E402
 from repro_torch.weights import from_jax_params, to_numpy_params  # noqa: E402
 
-ARCHS = ["starcoder2_3b", "rwkv6_3b"]
+ARCHS = ["minicpm_2b", "starcoder2_3b", "rwkv6_3b"]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -533,7 +533,7 @@ def test_gpu_serve_matches_cpu_path(cuda, ref_params, arch, compute):
     differently, so the prefill logits are held at 2e-2 of their scale."""
     _, tcfg = configs(arch, compute)
     params = from_jax_params(ref_params[arch])
-    kernel = fa_ops if arch == "starcoder2_3b" else ls_ops
+    kernel = ls_ops if arch == "rwkv6_3b" else fa_ops
     before = kernel.launches
     kw = dict(smoke=True, batch=2, prompt_len=40, gen=6, cfg=tcfg, verbose=False)
     stats = {}
@@ -566,7 +566,7 @@ def test_gpu_full_width_prefill_matches_reference(cuda, arch):
     jl, _, _ = jax.jit(lambda p, t: jdec.prefill(jcfg, p, t, 16))(params, jnp.asarray(toks))
     tp = from_jax_params(jax.tree.map(np.asarray, params), cuda)
     del params
-    kernel = fa_ops if arch == "starcoder2_3b" else ls_ops
+    kernel = ls_ops if arch == "rwkv6_3b" else fa_ops
     before = kernel.launches
     with torch.no_grad():
         tl, _, _ = tdec.prefill(tcfg, tp, torch.from_numpy(toks).long().to(cuda), 16)

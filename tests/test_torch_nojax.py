@@ -91,6 +91,15 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.serve.client import ProcessClientWorker, _process_client_main\n"
         "from repro_torch.core import ALGORITHMS\n"
         "assert 'vafl' in ALGORITHMS\n"
+        "import repro_torch.optim, repro_torch.distributed, repro_torch.distributed.gated\n"
+        "import repro_torch.distributed.hlo, repro_torch.launch.steps\n"
+        "import repro_torch.launch.train, repro_torch.launch.fl_train\n"
+        "import repro_torch.examples.fl_llm_finetune\n"
+        "import repro_torch.kernels.flash_attention.ref\n"
+        "from repro_torch.optim import adamw, wsd\n"
+        "from repro_torch.launch.steps import make_train_step, make_fl_train_step\n"
+        "from repro_torch.distributed.gated import make_gated_allreduce, should_sync\n"
+        "assert get_smoke_config('minicpm_2b').name == 'minicpm_2b_smoke'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
