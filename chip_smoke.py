@@ -96,13 +96,14 @@ Run it from the root of a checkout:
 
 Before the main paths it counts the tensor-core instructions (HMMA,
 HGMMA) in each kernel's compiled functions (``cuobjdump -sass`` from
-nvcc's toolkit) and fails if a bf16 route of flash_attention or
-linear_scan has none.  It holds the topk_int8 encode bit-exact against
-its plain route on the CNN's and the MLP's trees, on each side of the
-resident route's limit, at 2^24 + 123 elements, on a tie-heavy input
-and on one whose k-th magnitude is 0, and the tree-level grad_diff_norm
-call against its plain version on the CNN's 22 stacked leaves, counting
-the CUDA kernels each call launches (``torch.profiler``).
+nvcc's toolkit) and fails if a bf16 route of flash_attention, its
+backward or linear_scan has none.  It holds the topk_int8 encode
+bit-exact against its plain route on the CNN's and the MLP's trees, on
+each side of the resident route's limit, at 2^24 + 123 elements, on a
+tie-heavy input and on one whose k-th magnitude is 0, and the
+tree-level grad_diff_norm call against its plain version on the CNN's
+22 stacked leaves, counting the CUDA kernels each call launches
+(``torch.profiler``).
 
 It exits non-zero, and prints no result, when a phase fails, when no
 CUDA device is visible, or when it is not inside a checkout.  The last
@@ -187,9 +188,21 @@ DESIGN = {("flash_attention", "bfloat16"): "mma.sync m16n8k16 bf16, cp.async 2-s
                                        "mma.sync m16n8k16 bf16 with hi/lo splits, 8 x 8 diagonal "
                                        "blocks as running decay products, cp.async 2-stage, "
                                        "a block per (b, h), or per (32-column V slice, b, h) "
-                                       "where 2 B H blocks fit one an SM"}
-# the functions of each bf16 route in the compiled library (nvcc's names)
-TC_FUNCS = {"flash_attention": "flash_fwd_bf16", "linear_scan": "scan_bf16"}
+                                       "where 2 B H blocks fit one an SM",
+          ("flash_attention_bwd", "bfloat16"): "wgmma m64nNk16 bf16 for all 7 tile products, one "
+                                               "warpgroup a 64-key (dK/dV) or 64-query (dQ) "
+                                               "tile; S^T = K Q^T so P^T, dS^T stay in registers "
+                                               "as bf16 A operands; cp.async 2-stage rings of "
+                                               "swizzled bf16 tiles; GQA heads split over chunks, "
+                                               "fp32 partials summed in chunk order; no atomics",
+          ("flash_attention_bwd", "float32"): "three launches, no atomics: rowsum(dO o) a warp a "
+                                              "row; dK, dV a 64-key tile walking its GQA group's "
+                                              "heads in order; dQ a 64-query tile; fp32 FMA "
+                                              "64 x 64 tiles on the CUDA cores"}
+# the tensor-core functions of each bf16 route in the compiled library
+# (nvcc's names); each must hold HMMA or HGMMA instructions
+TC_FUNCS = {"flash_attention": ("flash_fwd_bf16",), "linear_scan": ("scan_bf16",),
+            "flash_attention_bwd": ("dkdv_bf16", "dq_bf16")}
 SERVE = dict(batch=4, prompt_len=2048, gen=32)
 CONSISTENCY_LEN = 128            # prefill vs stepwise decode at full width
 
@@ -260,12 +273,13 @@ def _demangle(mangled: list) -> dict:
 
 def phase_sass() -> dict:
     """Tensor-core instructions (HMMA, HGMMA) in every function of the
-    flash_attention and linear_scan libraries, read with ``cuobjdump
-    -sass`` from nvcc's toolkit; fails if a bf16 route has none."""
+    flash_attention, linear_scan and flash_attention_bwd libraries, read
+    with ``cuobjdump -sass`` from nvcc's toolkit; fails if a function of
+    a bf16 route named in ``TC_FUNCS`` is missing or has none."""
     from repro_torch.kernels import build
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     counts = {}
-    for name, bf16_fn in TC_FUNCS.items():
+    for name, bf16_fns in TC_FUNCS.items():
         out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
                              capture_output=True, text=True, timeout=300)
         if out.returncode != 0:
@@ -277,9 +291,10 @@ def phase_sass() -> dict:
                 per_fn[fn] = 0
             elif fn is not None and ("HMMA" in line or "HGMMA" in line):
                 per_fn[fn] += 1
-        tc = {f: n for f, n in per_fn.items() if bf16_fn in f}
-        if not tc or min(tc.values()) == 0:
-            fail(f"{name}: no tensor-core instruction in its bf16 route ({per_fn})")
+        tc = {f: n for f, n in per_fn.items() if any(b in f for b in bf16_fns)}
+        if any(not any(b in f for f in tc) for b in bf16_fns) or min(tc.values()) == 0:
+            fail(f"{name}: a function of its bf16 route {bf16_fns} is missing or holds no "
+                 f"tensor-core instruction ({per_fn})")
         counts[name] = sum(tc.values())
         plain = _demangle(list(per_fn))
         say(f"[sass] {name}: tensor-core instructions (HMMA/HGMMA): "
@@ -2311,6 +2326,10 @@ FA_BWD_CASES = [(4, 2048, 24, 2, 128, None, "bfloat16"), (4, 2048, 24, 2, 128, 2
                 (4, 1024, 36, 36, 64, None, "bfloat16"), (4, 1024, 36, 36, 64, 128, "bfloat16"),
                 (4, 1024, 36, 36, 64, None, "float32"), (4, 1024, 36, 36, 64, 128, "float32")]
 FA_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # of each gradient's scale
+# the first form's times of the cases above (fp32 FMA tiles for both
+# dtypes; PERF.md §6, H100 80GB HBM3, 700 W), quoted on each case's text
+# line and nowhere in the kernels line, which holds this run's numbers
+FA_BWD_OLD_MS = [21.8940, 5.3066, 22.3555, 5.3772, 3.2310, 1.1166, 3.2471, 1.1396]
 # step 1, kernel route vs plain route at bf16 compute, of each leaf's
 # scale: at most this, and at most the run's bf16 floor, the plain
 # route's own largest leaf gap to the same step at fp32 compute.  The
@@ -2319,7 +2338,7 @@ FA_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # of each gradient's scale
 # through a kernel (PERF.md, PR 23): bf16 rounding; a missing attention
 # gradient moves wq, wk and wv by their whole scale
 TRAIN_GRAD_TOL = 2e-2
-TRAIN_CHECK_SEEDS = (0, 1)
+TRAIN_CHECK_SEEDS = (0, 1, 2)
 # the reference test's eight pods (tests/test_distributed.py), cut to two
 # ranks twice: pods (4, 5), both above the mean, and pods (0, 5)
 GATED_VALS = [0.0, 0.0, 0.0, 0.0, 9.0, 9.0, 0.0, 0.0]
@@ -2335,7 +2354,8 @@ def phase_flash_backward(rows: list):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for B, S, H, KV, hd, window, dtype in FA_BWD_CASES:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (B, S, H, KV, hd, window, dtype), old_ms in zip(FA_BWD_CASES, FA_BWD_OLD_MS):
         dt = getattr(torch, dtype)
         q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt) for _ in range(2))
@@ -2370,8 +2390,15 @@ def phase_flash_backward(rows: list):
             ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
             dot = do.transpose(1, 2)
             lib = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
-                          10, 2)
+                          20, 3)
             del qt, kt, vt, ot
+        ms = cuda_ms(lambda: ops._launch_bwd(q, k, v, o, do, lse, window), 20, 3)
+        chunks = ops.bwd_plan(B, S, H, KV, sms) if dtype == "bfloat16" else 1
+        say(f"[train] flash_attention backward {case}: {ms:.4f} ms (first form: {old_ms} ms), "
+            + (f"{ms / lib:.2f} x SDPA's autograd backward ({lib:.4f} ms), " if lib is not None
+               else "no SDPA call takes a window, ")
+            + f"{nops / ms / 1e9:.1f} TFLOP/s of the 5-product work, {chunks} chunk(s) a GQA "
+            f"group")
         rows.append({
             "name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -2379,12 +2406,11 @@ def phase_flash_backward(rows: list):
             "replaces_note": "the gradient of that forward-only TPU kernel's function; the "
                              "reference trains through plain jnp attention",
             "shape": [B, S, H, KV, hd], "window": window, "dtype": dtype,
-            "design": "three launches, no atomics: rowsum(dO o) a warp a row; dK, dV a 64-key "
-                      "tile walking its GQA group's heads in order; dQ a 64-query tile; fp32 "
-                      "FMA 64 x 64 tiles on the CUDA cores for both dtypes",
+            "design": DESIGN[("flash_attention_bwd", dtype)], "chunks": chunks,
             "max_abs_err": max(errs), "max_abs_err_is": "of each gradient's scale",
             "tol": FA_BWD_TOL[dtype],
-            "ms": cuda_ms(lambda: ops._launch_bwd(q, k, v, o, do, lse, window), 5, 1),
+            "ms": ms, "tflops": nops / ms / 1e9,
+            "x_library": ms / lib if lib is not None else None,
             "plain_ms": cuda_ms(lambda: ref.gqa_attention_bwd(q, k, v, do, window=window), 3, 1),
             "bound_ms": bms, "bound_by": bby, "bound_bytes": nbytes, "bound_ops": nops,
             "library_ms": lib,
@@ -2456,9 +2482,13 @@ def _plain_lse(q, k, window):
     return torch.logsumexp(s.masked_fill(~keep, ref.NEG_INF), dim=-1)
 
 
-def _attention_route(fwd_kernel: bool, bwd_kernel: bool):
-    """The model layer's attention call with its forward and its backward
-    each through the kernel or the plain version (``ref``): the mixes
+def _attention_route(fwd_kernel: bool, bwd: str):
+    """The model layer's attention call with its forward through the
+    kernel or the plain version (``ref``), and its backward through the
+    plain version (``bwd`` "plain"), the kernel ("kernel") or the
+    kernel's fp32 route on the inputs widened to fp32, its gradients
+    rounded back ("fp32 route": the arithmetic of the first form of the
+    bf16 route, FMA tiles without bf16 rounding of P and dS): the mixes
     that locate the step-1 gap between the two routes."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
@@ -2477,8 +2507,11 @@ def _attention_route(fwd_kernel: bool, bwd_kernel: bool):
         @staticmethod
         def backward(ctx, do):
             q, k, v, o, lse = ctx.saved_tensors
-            if bwd_kernel:
+            if bwd == "kernel":
                 grads = ops._launch_bwd(q, k, v, o, do.contiguous(), lse, ctx.window)
+            elif bwd == "fp32 route":
+                grads = [g.to(q.dtype) for g in ops._launch_bwd(
+                    *(x.float() for x in (q, k, v, o, do.contiguous())), lse, ctx.window)]
             else:
                 grads = ref.gqa_attention_bwd(q, k, v, do, window=ctx.window)
             return (*grads, None)
@@ -2529,6 +2562,21 @@ def _worst(gaps, names) -> tuple:
     """(the largest gap of scale, its leaf's name)."""
     i = max(range(len(gaps)), key=lambda j: gaps[j][0])
     return gaps[i][0], names[i]
+
+
+def _worst_entry(grads, want, gaps) -> tuple:
+    """Of the leaf with the largest gap: (its largest |a - b| in units in
+    the last place of bf16 at b's value there, the share of its entries
+    where a != b)."""
+    import math
+    from repro_torch.common.pytree import tree_leaves
+    i = max(range(len(gaps)), key=lambda j: gaps[j][0])
+    a, b = tree_leaves(grads)[i].flatten(), tree_leaves(want)[i].flatten()
+    d = (a.float() - b.float()).abs()
+    at = int(d.argmax())
+    ref = abs(float(b[at]))
+    ulps = float(d[at]) / 2.0 ** (math.floor(math.log2(ref)) - 7) if ref > 0 else math.inf
+    return ulps, gaps[i][3]
 
 
 def gated_rank(q, root, rank, world, init):
@@ -2599,9 +2647,12 @@ def phase_train_check() -> dict:
     """Step 1 of the full-width cell through the kernels against the same
     step through the plain attention on the card, per leaf; with the
     mixes (kernel forward + plain backward, plain forward + kernel
+    backward, and the plain or kernel forward + the fp32 route's
     backward) and the plain route at fp32 compute, which say where a gap
-    comes from.  A comparison, so it runs before the [train] path's
-    counts are reset."""
+    comes from.  Each route's worst leaf is also read in bf16 ulps at
+    its worst entry, with the share of that leaf's entries that differ
+    from the plain route's.  A comparison, so it runs before the [train]
+    path's counts are reset."""
     import torch
     from repro_torch.common.pytree import tree_leaves
     from repro_torch.kernels.flash_attention import ref
@@ -2622,9 +2673,15 @@ def phase_train_check() -> dict:
                  f"{float(loss_p)} plain")
         per_leaf = _leaf_gaps(grads_k, grads_p)
         gaps = {"kernels": _worst(per_leaf, names)}
-        for what, route in (("kernel fwd + plain bwd", _attention_route(True, False)),
-                            ("plain fwd + kernel bwd", _attention_route(False, True))):
-            gaps[what] = _worst(_leaf_gaps(_step_one_grads(cfg, seed, route)[1], grads_p), names)
+        detail = {"kernels": _worst_entry(grads_k, grads_p, per_leaf)}
+        for what, fwd, bwd in (("kernel fwd + plain bwd", True, "plain"),
+                               ("plain fwd + kernel bwd", False, "kernel"),
+                               ("plain fwd + fp32-route bwd", False, "fp32 route"),
+                               ("kernel fwd + fp32-route bwd", True, "fp32 route")):
+            grads = _step_one_grads(cfg, seed, _attention_route(fwd, bwd))[1]
+            mix = _leaf_gaps(grads, grads_p)
+            gaps[what], detail[what] = _worst(mix, names), _worst_entry(grads, grads_p, mix)
+            del grads
             torch.cuda.empty_cache()
         _, grads_f = _step_one_grads(cfg.replace(compute_dtype="float32"), seed, plain)
         floor_per_leaf = _leaf_gaps(grads_p, grads_f)
@@ -2636,7 +2693,9 @@ def phase_train_check() -> dict:
             f"nonzero and finite; loss {float(loss_k):.6f} through the kernels, "
             f"{float(loss_p):.6f} through the plain attention; worst leaf gap to the plain "
             f"route, of its scale: "
-            + ", ".join(f"{w} {e:.4g} ({n})" for w, (e, n) in gaps.items())
+            + ", ".join(f"{w} {e:.4g} ({n}: {detail[w][0]:.3g} bf16 ulps at its worst entry, "
+                        f"{detail[w][1]:.3g} of its entries differ)"
+                        for w, (e, n) in gaps.items())
             + f"; to the plain route at fp32 compute: "
             + ", ".join(f"{w} {e:.4g} ({n})" for w, (e, n) in to_fp32.items())
             + f"; limit min({TRAIN_GRAD_TOL}, bf16 floor {floor:.4g})")
@@ -2650,7 +2709,7 @@ def phase_train_check() -> dict:
                  f"of its gradient's scale, beyond {TRAIN_GRAD_TOL} or the bf16 floor {floor:.3g} "
                  f"(the plain route's own largest gap to fp32 compute)")
         out[seed] = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
-                     "gaps": gaps, "to_fp32": to_fp32, "floor": floor}
+                     "gaps": gaps, "worst_entry": detail, "to_fp32": to_fp32, "floor": floor}
         del grads_k, grads_p, grads_f
         torch.cuda.empty_cache()
     return out
@@ -2968,6 +3027,7 @@ def main() -> None:
     bwd_sc = next(r for r in fa_bwd_rows if r["shape"][2] == 24 and r["window"] is None
                   and r["dtype"] == "bfloat16")
     main_bwd = dict(bwd_main, launches=tr_counts["flash_attention_bwd"],
+                    tensor_core_instructions=sass["flash_attention_bwd"],
                     train_step_run_launches=train["counts"]["flash_attention_bwd"],
                     step_one_worst_leaf_gap={seed: c["gaps"]["kernels"]
                                              for seed, c in train_check.items()},
@@ -2983,9 +3043,9 @@ def main() -> None:
         + f"; gated collective on 2 spawned ranks {train['gated_s']:.2f} s; FL LM example "
         f"{train['example_s']:.2f} s (CCR {train['ccr']:.2%}); backward kernel "
         f"{bwd_main['ms']:.4f} ms at {bwd_main['shape']} bf16 (bound {bwd_main['bound_ms']:.4f}, "
-        f"SDPA backward {bwd_main['library_ms']:.4f}), {bwd_sc['ms']:.4f} ms at "
-        f"{bwd_sc['shape']} (bound {bwd_sc['bound_ms']:.4f}, SDPA backward "
-        f"{bwd_sc['library_ms']:.4f})")
+        f"SDPA backward {bwd_main['library_ms']:.4f}, {bwd_main['x_library']:.2f} x), "
+        f"{bwd_sc['ms']:.4f} ms at {bwd_sc['shape']} (bound {bwd_sc['bound_ms']:.4f}, SDPA "
+        f"backward {bwd_sc['library_ms']:.4f}, {bwd_sc['x_library']:.2f} x)")
     say(json.dumps({"kernels": [main_gd, main_tq, main_fa, main_ls, main_bwd]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,12 +11,73 @@
 //
 // FlashAttention-2's backward, from the forward's per-row logsumexp
 // lse[b, h, t] (natural log, scaled scores):
-//   D_t  = sum_d dO[t, d] O[t, d]                          (bwd_dot)
+//   D_t  = sum_d dO[t, d] O[t, d]
 //   P_ts = exp(scale q_t . k_s - lse_t)     recomputed, tile by tile
 //   dV_s = sum_t P_ts dO_t
 //   dS_ts = P_ts (dO_t . v_s - D_t)
 //   dK_s = scale sum_t dS_ts q_t,   dQ_t = scale sum_s dS_ts k_s
-// Three launches, no atomics, so a rerun gives the same bits:
+// No atomics in either route, so two launches on one input give the same
+// bits: dK and dV are summed by a kernel that owns a key tile, dQ by one
+// that owns a query tile, and each recomputes S = Q K^T and dP = dO V^T
+// for its pairs of tiles: 7 tile products a pair of tiles where 5 would
+// do with atomics.
+//
+// Bound on an H100: operations.  The five products cost 10 D operations
+// a visible (query, key) pair, hundreds of operations a byte moved at
+// S = 2048: 5 products at 989 TFLOP/s (bf16 tensor cores) is the bar.
+//
+// Two routes, chosen by the input type:
+//
+// bf16 (the [train] path): FlashAttention-2's backward on Hopper's
+// warpgroup product, wgmma m64nNk16 bf16 -> fp32 (csrc/wgmma_sm90.cuh),
+// four launches:
+//   row_stats  D and lse log2(e) of every row, 16-byte loads, into a
+//              scratch of rows padded to 64 (zeros past S);
+//   dkdv_bf16  one warpgroup (4 warps) a (64-key tile, kv head, batch
+//              row, chunk of the GQA group's query heads), dK and dV of
+//              its 64 keys in fp32 registers;
+//   sum_chunks the chunks' fp32 partials of dK and dV summed in chunk
+//              order and rounded (only when a group is split);
+//   dq_bf16    one warpgroup a (64-query tile, head, batch row), dQ of its
+//              64 rows in fp32 registers.
+// What the design does about what held the first form back:
+//  1. Tensor cores: every product is a wgmma.  The score products read
+//     both factors from shared memory (S^T = K Q^T in dkdv_bf16, keys as
+//     rows; S = Q K^T in dq_bf16), so a warpgroup reads each tile once
+//     where four mma.sync warps would each read it.  P^T and dS^T (P and
+//     dS in dq_bf16) come out of the accumulator in the layout of wgmma's
+//     register operand: they are rounded to bf16, as FlashAttention-2
+//     does, and packed in registers, never stored, so dV += P^T dO,
+//     dK += dS^T Q and dQ += dS K read only their right factor from
+//     shared memory.  The weights are recomputed while dP is multiplied
+//     (two commit groups).  An mma.sync form of the same tiles, each warp
+//     loading its right factors by ldmatrix, was built first and ran
+//     slower on the card (PERF.md §6).
+//  2. Asynchronous copies: Q and dO tiles (with their rows of D and lse)
+//     stream through a two-stage ring by 16-byte cp.async, zero-filled
+//     past S, as do K and V tiles in dq_bf16: tile j + 1 is in flight
+//     while tile j is multiplied.  Tiles are stored in wgmma's 128-byte
+//     swizzle (64-byte at D = 32), which also spreads the copies over the
+//     banks; one copy of Q, dO or K serves as both the K-major and the
+//     MN-major operand.
+//  3. Shared memory holds bf16: six 64-row tiles, 100,352 bytes at
+//     D = 128 (two blocks an SM), 51,200 at D = 64 (three, as registers
+//     allow).
+//  4. Parallelism under GQA: the query heads of a group are split over
+//     `chunks` blocks (the wrapper chooses the fewest that give about two
+//     waves); each chunk writes an fp32 partial, which sum_chunks adds in
+//     chunk order.  A group of one head writes dK and dV directly.  The
+//     1-D grids launch the heaviest tiles first (the earliest key tiles,
+//     the latest query tiles).  Pairs of tiles wholly above the diagonal
+//     or outside the window are never visited; only the pairs that cross
+//     an edge are masked.
+//  5. The score products stay doubled (7 products): the price of no
+//     atomics.  The softmax recompute is the forward's: one FFMA and one
+//     MUFU ex2 a weight, from the forward's lse.
+
+// fp32 (held to 1e-4 of scale, which TF32 or bf16 products would break):
+// the first form, unchanged: fp32 FMA tiles on the CUDA cores, three
+// launches:
 //   bwd_dot   one warp a (b, t, h) row;
 //   bwd_dkdv  one block a (64-key tile, kv head, batch row); it walks the
 //             query heads of its GQA group in order, and for each the
@@ -24,27 +85,22 @@
 //             tile in registers;
 //   bwd_dq    one block a (64-query tile, head, batch row), walking the
 //             key tiles its rows see (the forward's loop), dQ in registers.
-// Both tile kernels recompute S = Q K^T and dP = dO V^T for their pairs of
-// tiles, so the score products are done twice: 7 tile products a pair of
-// tiles against the forward's 2.
-//
-// Bound on an H100: operations, as for the forward (hundreds of operations
-// a byte at S = 2048).  This first form computes in fp32 FMA tiles on the
-// CUDA cores for both input types, bf16 inputs converted on their way into
-// shared memory, gradients rounded to the input type on the way out: a
-// 67 TFLOP/s ceiling against the tensor cores' 989.  The tensor-core form
-// (mma.sync or wgmma, as the forward's bf16 route) is later work.
 // Each thread owns a 4 x 4 patch of a 64 x 64 score tile and 4 rows x D/16
 // columns of its block's gradient tile; D-wide tiles are padded by one
 // float so that 16 rows read at one depth fall in 16 banks.  Shared
 // memory: 4 D-wide tiles and two (or one) score tiles, 165,888 bytes at
-// D = 128 for bwd_dkdv.
+// D = 128 for bwd_dkdv.  A 67 TFLOP/s ceiling.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm80.cuh"
+#include "wgmma_sm90.cuh"
+
 namespace {
+
+// ------------------------------------------------------------ fp32 route
 
 constexpr int kT = 64;         // queries and keys per tile
 constexpr int kThreads = 256;  // 16 x 16 threads
@@ -66,9 +122,7 @@ struct Args {
 };
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ bool visible(int t, int s, int S, int window) {
   return s <= t && t < S && (window <= 0 || t - s < window);
@@ -380,39 +434,537 @@ int dispatch(const Args& a, int hd, cudaStream_t s) {
   }
 }
 
+// ------------------------------------------------------------ bf16 route
+
+constexpr int kB = 64;           // queries and keys a tile
+constexpr int kBThreads = 128;   // one warpgroup: 4 warps x 16 rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+typedef __nv_bfloat16 bf16;
+
+struct BArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* o;
+  const bf16* dout;
+  const float* lse;  // (B, H, S)
+  float* dvec;       // D (B, H, Sp), then lse log2(e) (B, H, Sp); zeros past S
+  float* part;       // chunks > 1: partial dK (chunks, B, S, KV, HD), then dV
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  int B, S, Sp, H, KV, window, chunks;  // Sp: S rounded up to kB
+  float scale;
+};
+
+// Tiles of kB rows of HD bf16 in wgmma's swizzled layout (wgmma_sm90.cuh):
+// lines of kLine bytes, HD * 2 / kLine blocks of kB lines each.
+template <int HD>
+struct Tile {
+  static constexpr int kLine = HD * 2 >= 128 ? 128 : HD * 2;
+  static constexpr int kBlockBytes = kB * kLine;
+  static constexpr int kBytes = kB * HD * 2;
+  static constexpr uint32_t kSwizzle = kLine == 128 ? 1 : 2;
+  static constexpr int kChunks = kLine / 16;  // 16-byte chunks a line
+
+  // byte offset of 16-byte chunk c (of HD / 8) of row r
+  __device__ static __forceinline__ int offset(int r, int c) {
+    return (c / kChunks) * kBlockBytes + r * kLine +
+           (((c % kChunks) ^ ((r * kLine >> 7) & (kChunks - 1))) << 4);
+  }
+  // the tile as a K-major operand (its rows are m or n), k-step ks
+  __device__ static __forceinline__ uint64_t k_major(const unsigned char* t, int ks) {
+    return wg::desc(t + (ks * 32 / kLine) * kBlockBytes + ks * 32 % kLine, 16, 8 * kLine,
+                    kSwizzle);
+  }
+  // the tile as an MN-major operand (its rows are k), k-step ks
+  __device__ static __forceinline__ uint64_t mn_major(const unsigned char* t, int ks) {
+    return wg::desc(t + ks * 16 * kLine, kBlockBytes, 8 * kLine, kSwizzle);
+  }
+};
+
+// Both tile kernels: six tiles, a ring of kB floats of D and of lse, and
+// 1024 bytes to align the tiles.
+template <int HD>
+constexpr size_t bf16_smem_bytes() {
+  return 6 * (size_t)Tile<HD>::kBytes + sizeof(float) * 4 * kB + 1024;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = mma::smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// kB rows of HD bf16 from src (row stride `stride` elements), starting at
+// sequence position s0, into a swizzled tile; rows past S are zeros.
+template <int HD>
+__device__ __forceinline__ void load_tile_bf16(unsigned char* dst, const bf16* src,
+                                               long long stride, int s0, int S, int tid) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks a row
+  static_assert(kB * kChunks % kBThreads == 0, "tile must split evenly over the block");
+#pragma unroll
+  for (int j = 0; j < kB * kChunks / kBThreads; ++j) {
+    const int i = tid + j * kBThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const int s = s0 + r;
+    const bool in = s < S;
+    mma::cp_async16(dst + Tile<HD>::offset(r, c), in ? src + s * stride + c * 8 : src,
+                    in ? 16 : 0);
+  }
+}
+
+// The accumulator registers of n-tiles 2 kk and 2 kk + 1, rounded to bf16:
+// the register A of k-step kk of the next product.
+__device__ __forceinline__ void pack_a(uint32_t (&r)[4], const float* d) {
+  r[0] = mma::pack_bf16(d[0], d[1]);
+  r[1] = mma::pack_bf16(d[2], d[3]);
+  r[2] = mma::pack_bf16(d[4], d[5]);
+  r[3] = mma::pack_bf16(d[6], d[7]);
+}
+
+// D_t = dO_t . O_t and lse_t log2(e) of every (b, h, t < Sp) row, HD / 8
+// lanes a row, 16 bytes each; rows past S get zeros.
+template <int HD>
+__global__ void __launch_bounds__(256) row_stats(BArgs a) {
+  constexpr int L = HD / 8;
+  const long long rows = (long long)a.B * a.H * a.Sp;
+  const long long r = ((long long)blockIdx.x * 256 + threadIdx.x) / L;  // (b h) Sp + t
+  const int part = threadIdx.x % L;
+  const int t = (int)(r % a.Sp);
+  const long long bh = r / a.Sp;
+  float acc = 0.f, l2 = 0.f;
+  if (r < rows && t < a.S) {
+    const int h = (int)(bh % a.H), b = (int)(bh / a.H);
+    const long long off = (((long long)b * a.S + t) * a.H + h) * HD + part * 8;
+    const uint4 ov = *reinterpret_cast<const uint4*>(a.o + off);
+    const uint4 gv = *reinterpret_cast<const uint4*>(a.dout + off);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(o2[i]), y = __bfloat1622float2(g2[i]);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+    l2 = a.lse[bh * a.S + t] * kLog2e;
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < rows && part == 0) {
+    a.dvec[r] = acc;
+    a.dvec[rows + r] = l2;
+  }
+}
+
+// Both tile kernels are one warpgroup: 4 warps, 16 rows each of every
+// 64-row product.  At D <= 64 registers are capped so that three blocks
+// fit an SM; at D = 128 a thread may take 255, and two blocks fit.
+template <int HD>
+__global__ void __launch_bounds__(kBThreads, HD <= 64 ? 3 : 1) dkdv_bf16(BArgs a) {
+  using T = Tile<HD>;
+  constexpr int KS = HD / 16;  // k-steps of S^T and dP^T
+  constexpr int NR = HD / 2;   // accumulator registers of dK and of dV (64 x HD)
+  extern __shared__ unsigned char dkdv_smem_bf16[];
+  unsigned char* k_s = align1024(dkdv_smem_bf16);
+  unsigned char* v_s = k_s + T::kBytes;
+  unsigned char* q_s = v_s + T::kBytes;       // 2 stages
+  unsigned char* do_s = q_s + 2 * T::kBytes;  // 2 stages
+  float* dd_s = reinterpret_cast<float*>(do_s + 2 * T::kBytes);  // 2 stages x kB
+  float* ll_s = dd_s + 2 * kB;                                    // 2 stages x kB
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  // the earliest key tiles, which the most queries see, launch first
+  const int inner = a.KV * a.chunks * a.B;
+  const int kt = blockIdx.x / inner, rem = blockIdx.x % inner;
+  const int b = rem % a.B, ch = (rem / a.B) % a.chunks, grp = rem / a.B / a.chunks;
+  const int G = a.H / a.KV;
+  const int h0 = grp * G + ch * G / a.chunks, h1 = grp * G + (ch + 1) * G / a.chunks;
+  const int k0 = kt * kB;
+  // query tiles holding a query that sees a key of this tile: from the
+  // diagonal's to the last the window (or S) reaches
+  const int k_last = min(k0 + kB, a.S) - 1;
+  const int t_end = a.window > 0 ? min(a.S - 1, k_last + a.window - 1) : a.S - 1;
+  const int nq = t_end / kB - kt + 1, items = (h1 - h0) * nq;
+  const long long qrow = (long long)a.H * HD, krow = (long long)a.KV * HD;
+  const long long rows = (long long)a.B * a.H * a.Sp;
+
+  load_tile_bf16<HD>(k_s, a.k + (long long)b * a.S * krow + grp * HD, krow, k0, a.S, tid);
+  load_tile_bf16<HD>(v_s, a.v + (long long)b * a.S * krow + grp * HD, krow, k0, a.S, tid);
+  // item i: query head h0 + i / nq, query tile kt + i % nq
+  auto load_item = [&](int i, int st) {
+    const int h = h0 + i / nq, q0 = (kt + i % nq) * kB;
+    const long long off = (long long)b * a.S * qrow + (long long)h * HD;
+    load_tile_bf16<HD>(q_s + st * T::kBytes, a.q + off, qrow, q0, a.S, tid);
+    load_tile_bf16<HD>(do_s + st * T::kBytes, a.dout + off, qrow, q0, a.S, tid);
+    if (tid < 32) {  // 16 chunks of D, 16 of lse
+      const long long row = ((long long)b * a.H + h) * a.Sp + q0 + (tid % 16) * 4;
+      mma::cp_async16((tid < 16 ? dd_s : ll_s) + st * kB + (tid % 16) * 4,
+                      a.dvec + (tid < 16 ? 0 : rows) + row, 16);
+    }
+  };
+  load_item(0, 0);
+  mma::cp_async_commit();
+
+  float dk[NR], dv[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) dk[r] = dv[r] = 0.f;
+  const int kw0 = k0 + warp * 16;  // this warp's first key
+  const float sl2 = a.scale * kLog2e;
+
+  for (int i = 0; i < items; ++i) {
+    const int st = i & 1;
+    mma::cp_async_wait<0>();  // item i (and K, V) has landed ...
+    wg::fence_proxy_async();  // ... where wgmma reads it ...
+    __syncthreads();          // ... for every thread, and item i - 1 is no longer read
+    if (i + 1 < items) {
+      load_item(i + 1, st ^ 1);
+      mma::cp_async_commit();
+    }
+    const int q0 = (kt + i % nq) * kB;
+    const bool need_mask = q0 < kw0 + 15 || q0 + kB > a.S || kw0 + 16 > a.S ||
+                           (a.window > 0 && q0 + kB - 1 - kw0 >= a.window);
+    const unsigned char* qt_s = q_s + st * T::kBytes;
+    const unsigned char* dot_s = do_s + st * T::kBytes;
+    const float* dd = dd_s + st * kB;
+    const float* ll = ll_s + st * kB;
+
+    // S^T = K Q^T and dP^T = V dO^T: keys kw0 + g (e = 0, 1) and + 8
+    // (e = 2, 3) by queries q0 + 8 j + 2 c + (e & 1), in register 4 j + e
+    // (two groups: the weights are recomputed while dP^T is multiplied)
+    float s[32], dpt[32];
+    wg::fence_regs(s);
+    wg::fence_regs(dpt);
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wg::ss_m64n64(s, T::k_major(k_s, ks), T::k_major(qt_s, ks), ks > 0);
+    wg::commit();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wg::ss_m64n64(dpt, T::k_major(v_s, ks), T::k_major(dot_s, ks), ks > 0);
+    wg::commit();
+    wg::wait<1>();
+    wg::fence_regs(s);
+
+    // P^T = 2^(s scale log2(e) - lse log2(e)), one FFMA and one ex2 a
+    // weight; then dS^T = P^T (dP^T - D)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ll + 8 * j + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = mma::exp2_approx(fmaf(s[4 * j + e], sl2, -((e & 1) ? l2.y : l2.x)));
+        if (need_mask) {
+          const int key = kw0 + g + (e >> 1) * 8, t = q0 + 8 * j + 2 * c + (e & 1);
+          if (!visible(t, key, a.S, a.window)) p = 0.f;
+        }
+        s[4 * j + e] = p;
+      }
+    }
+    wg::wait<0>();
+    wg::fence_regs(dpt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dd + 8 * j + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * j + e] = s[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+    }
+    uint32_t pa[kB / 16][4], sa[kB / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kB / 16; ++kk) {
+      pack_a(pa[kk], s + 8 * kk);
+      pack_a(sa[kk], dpt + 8 * kk);
+    }
+
+    // dV += P^T dO, dK += dS^T Q
+    wg::fence_regs(dv);
+    wg::fence_regs(dk);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kB / 16; ++kk) wg::rs(dv, pa[kk], T::mn_major(dot_s, kk));
+#pragma unroll
+    for (int kk = 0; kk < kB / 16; ++kk) wg::rs(dk, sa[kk], T::mn_major(qt_s, kk));
+    wg::commit();
+    wg::wait<0>();  // before the next item's copies reuse this stage
+    wg::fence_regs(dv);
+    wg::fence_regs(dk);
+  }
+
+  // keys kw0 + g and kw0 + g + 8, columns 8 n + 2 c, + 1: bf16 into dK and
+  // dV when the group is one chunk, else this chunk's fp32 partial
+  const long long n_el = (long long)a.B * a.S * krow;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int key = kw0 + g + 8 * hf;
+    if (key >= a.S) continue;
+    if (a.chunks == 1) {
+      bf16* dkr = a.dk + ((long long)b * a.S + key) * krow + grp * HD + 2 * c;
+      bf16* dvr = a.dv + ((long long)b * a.S + key) * krow + grp * HD + 2 * c;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(dkr + 8 * n) =
+            mma::pack_bf16(dk[4 * n + 2 * hf] * a.scale, dk[4 * n + 2 * hf + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvr + 8 * n) =
+            mma::pack_bf16(dv[4 * n + 2 * hf], dv[4 * n + 2 * hf + 1]);
+      }
+    } else {
+      float* pk = a.part + (((long long)ch * a.B + b) * a.S + key) * krow + grp * HD + 2 * c;
+      float* pv = pk + a.chunks * n_el;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<float2*>(pk + 8 * n) =
+            make_float2(dk[4 * n + 2 * hf] * a.scale, dk[4 * n + 2 * hf + 1] * a.scale);
+        *reinterpret_cast<float2*>(pv + 8 * n) =
+            make_float2(dv[4 * n + 2 * hf], dv[4 * n + 2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// dK and dV from the chunks' partials, summed in chunk order: 4 elements a
+// thread over the 2 B S KV HD outputs.
+__global__ void __launch_bounds__(256) sum_chunks(BArgs a, int hd) {
+  const long long n_el = (long long)a.B * a.S * a.KV * hd;
+  const long long i = ((long long)blockIdx.x * 256 + threadIdx.x) * 4;
+  if (i >= 2 * n_el) return;
+  const bool is_v = i >= n_el;
+  const long long j = is_v ? i - n_el : i;
+  const float* src = a.part + (is_v ? a.chunks * n_el : 0) + j;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int ch = 1; ch < a.chunks; ++ch) {
+    const float4 x = *reinterpret_cast<const float4*>(src + ch * n_el);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  uint2 out;
+  out.x = mma::pack_bf16(acc.x, acc.y);
+  out.y = mma::pack_bf16(acc.z, acc.w);
+  *reinterpret_cast<uint2*>((is_v ? a.dv : a.dk) + j) = out;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBThreads, HD <= 64 ? 3 : 1) dq_bf16(BArgs a) {
+  using T = Tile<HD>;
+  constexpr int KS = HD / 16;  // k-steps of S and dP
+  constexpr int NR = HD / 2;   // accumulator registers of dQ (64 x HD)
+  extern __shared__ unsigned char dq_smem_bf16[];
+  unsigned char* q_s = align1024(dq_smem_bf16);
+  unsigned char* do_s = q_s + T::kBytes;
+  unsigned char* k_s = do_s + T::kBytes;     // 2 stages
+  unsigned char* v_s = k_s + 2 * T::kBytes;  // 2 stages
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  // the latest query tiles, which see the most keys, launch first
+  const int inner = a.H * a.B;
+  const int tiles = (a.S + kB - 1) / kB;
+  const int qt = tiles - 1 - (int)(blockIdx.x / inner), rem = blockIdx.x % inner;
+  const int b = rem % a.B, h = rem / a.B;
+  const int grp = h / (a.H / a.KV);
+  const int q0 = qt * kB;
+  const long long qrow = (long long)a.H * HD, krow = (long long)a.KV * HD;
+  const bf16* kg = a.k + (long long)b * a.S * krow + grp * HD;
+  const bf16* vg = a.v + (long long)b * a.S * krow + grp * HD;
+
+  // key tiles holding a key that some row of this query tile sees
+  const int q_last = min(q0 + kB, a.S) - 1;
+  const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int kt0 = k_first / kB, kt1 = q_last / kB;
+
+  const long long qoff = (long long)b * a.S * qrow + (long long)h * HD;
+  load_tile_bf16<HD>(q_s, a.q + qoff, qrow, q0, a.S, tid);
+  load_tile_bf16<HD>(do_s, a.dout + qoff, qrow, q0, a.S, tid);
+  load_tile_bf16<HD>(k_s, kg, krow, kt0 * kB, a.S, tid);
+  load_tile_bf16<HD>(v_s, vg, krow, kt0 * kB, a.S, tid);
+  mma::cp_async_commit();
+
+  // this thread's rows wq0 + g and wq0 + g + 8 (both < Sp)
+  const int wq0 = q0 + warp * 16;
+  const long long rows = (long long)a.B * a.H * a.Sp;
+  const float* dvr = a.dvec + ((long long)b * a.H + h) * a.Sp + wq0 + g;
+  const float dd[2] = {dvr[0], dvr[8]}, l2[2] = {dvr[rows], dvr[rows + 8]};
+
+  float dq[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) dq[r] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+
+  for (int kt = kt0; kt <= kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    mma::cp_async_wait<0>();  // tile kt has landed ...
+    wg::fence_proxy_async();  // ... where wgmma reads it ...
+    __syncthreads();          // ... for every thread, and tile kt - 1 is no longer read
+    if (kt < kt1) {
+      load_tile_bf16<HD>(k_s + (st ^ 1) * T::kBytes, kg, krow, (kt + 1) * kB, a.S, tid);
+      load_tile_bf16<HD>(v_s + (st ^ 1) * T::kBytes, vg, krow, (kt + 1) * kB, a.S, tid);
+      mma::cp_async_commit();
+    }
+    const int k0 = kt * kB;
+    const bool need_mask = k0 + kB - 1 > wq0 || k0 + kB > a.S || wq0 + 16 > a.S ||
+                           (a.window > 0 && wq0 + 15 - k0 >= a.window);
+    const unsigned char* kt_s = k_s + st * T::kBytes;
+    const unsigned char* vt_s = v_s + st * T::kBytes;
+
+    // S = Q K^T and dP = dO V^T: rows wq0 + g (e = 0, 1) and + 8 (e = 2,
+    // 3) by keys k0 + 8 j + 2 c + (e & 1), in register 4 j + e
+    // (two groups: the weights are recomputed while dP is multiplied)
+    float s[32], dp[32];
+    wg::fence_regs(s);
+    wg::fence_regs(dp);
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wg::ss_m64n64(s, T::k_major(q_s, ks), T::k_major(kt_s, ks), ks > 0);
+    wg::commit();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wg::ss_m64n64(dp, T::k_major(do_s, ks), T::k_major(vt_s, ks), ks > 0);
+    wg::commit();
+    wg::wait<1>();
+    wg::fence_regs(s);
+
+    // P recomputed as in dkdv_bf16, then dS = P (dP - D)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = mma::exp2_approx(fmaf(s[4 * j + e], sl2, -l2[e >> 1]));
+        if (need_mask) {
+          const int row = wq0 + g + (e >> 1) * 8, key = k0 + 8 * j + 2 * c + (e & 1);
+          if (!visible(row, key, a.S, a.window)) p = 0.f;
+        }
+        s[4 * j + e] = p;
+      }
+    wg::wait<0>();
+    wg::fence_regs(dp);
+    uint32_t sa[kB / 16][4];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) dp[r] = s[r] * (dp[r] - dd[(r >> 1) & 1]);
+#pragma unroll
+    for (int kk = 0; kk < kB / 16; ++kk) pack_a(sa[kk], dp + 8 * kk);
+
+    // dQ += dS K
+    wg::fence_regs(dq);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kB / 16; ++kk) wg::rs(dq, sa[kk], T::mn_major(kt_s, kk));
+    wg::commit();
+    wg::wait<0>();  // before the next tile's copies reuse this stage
+    wg::fence_regs(dq);
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = wq0 + g + 8 * hf;
+    if (row >= a.S) continue;
+    bf16* dqr = a.dq + qoff + (long long)row * qrow + 2 * c;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dqr + 8 * n) =
+          mma::pack_bf16(dq[4 * n + 2 * hf] * a.scale, dq[4 * n + 2 * hf + 1] * a.scale);
+  }
+}
+
+template <int HD>
+int launch_bf16(const BArgs& a, cudaStream_t s) {
+  const long long threads = (long long)a.B * a.H * a.Sp * (HD / 8);
+  row_stats<HD><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const long long tiles = (a.S + kB - 1) / kB;
+  const size_t bytes = bf16_smem_bytes<HD>();
+  err = cudaFuncSetAttribute(dkdv_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dkdv_bf16<HD><<<(unsigned)(tiles * a.KV * a.chunks * a.B), kBThreads, bytes, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (a.chunks > 1) {
+    const long long quads = (long long)a.B * a.S * a.KV * HD / 2;  // 2 n_el / 4
+    sum_chunks<<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(a, HD);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  err = cudaFuncSetAttribute(dq_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dq_bf16<HD><<<(unsigned)(tiles * a.H * a.B), kBThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike).
 // q, o, dout, dq are contiguous (B, S, H, hd); k, v, dk, dv contiguous
-// (B, S, KV, hd); lse (the forward's, natural log of the scaled scores'
-// sum) and dvec (scratch) fp32 (B, H, S).  window <= 0 means none.
-// Launches three kernels on `stream`; returns the first CUDA error (0 on
-// success).
+// (B, S, KV, hd); for bfloat16 every base pointer 16-byte aligned.  lse
+// (the forward's, natural log of the scaled scores' sum) fp32 (B, H, S).
+// dvec: fp32 scratch of 2 B H Sp floats, Sp = S rounded up to 64.
+// chunks: bfloat16 only, the query-head chunks of a GQA group in the dK/dV
+// launch, 1 <= chunks <= H / KV; when above 1, part is fp32 scratch of
+// 2 chunks B S KV hd floats (else unused, may be null); float32 takes 1.
+// window <= 0 means none.  Launches three kernels on `stream` (four for
+// bfloat16 with chunks > 1); returns the first CUDA error (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* dvec, void* dq,
-                                   void* dk, void* dv, int dtype, int B, int S, int H, int KV,
-                                   int hd, int window, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || B > 65535 || H > 65535)
+                                   void* dk, void* dv, float* part, int chunks, int dtype, int B,
+                                   int S, int H, int KV, int hd, int window, float scale,
+                                   void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || B > 65535 || H > 65535 ||
+      chunks < 1 || chunks > H / KV || (chunks > 1 && (dtype != 1 || part == nullptr)))
     return (int)cudaErrorInvalidValue;
-  Args a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.o = o;
-  a.dout = dout;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    Args a;
+    a.q = q;
+    a.k = k;
+    a.v = v;
+    a.o = o;
+    a.dout = dout;
+    a.lse = lse;
+    a.dvec = dvec;
+    a.dq = dq;
+    a.dk = dk;
+    a.dv = dv;
+    a.B = B;
+    a.S = S;
+    a.H = H;
+    a.KV = KV;
+    a.window = window;
+    a.scale = scale;
+    return dispatch<float>(a, hd, s);
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  BArgs a;
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.o = static_cast<const bf16*>(o);
+  a.dout = static_cast<const bf16*>(dout);
   a.lse = lse;
   a.dvec = dvec;
-  a.dq = dq;
-  a.dk = dk;
-  a.dv = dv;
+  a.part = part;
+  a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
   a.B = B;
   a.S = S;
+  a.Sp = (S + kB - 1) / kB * kB;
   a.H = H;
   a.KV = KV;
   a.window = window;
+  a.chunks = chunks;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, hd, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, hd, s);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 32: return launch_bf16<32>(a, s);
+    case 64: return launch_bf16<64>(a, s);
+    case 128: return launch_bf16<128>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,5 +1,6 @@
 // Warp-level tensor-core and asynchronous-copy primitives shared by the
-// port's bf16 kernels (flash_attention.cu, linear_scan.cu): 16-byte
+// port's bf16 kernels (flash_attention.cu, linear_scan.cu; the copies,
+// packing and 2^x also flash_attention_bwd.cu): 16-byte
 // cp.async with zero fill, ldmatrix (plain and transposed),
 // mma.sync m16n8k16 bf16 -> fp32, and the MUFU unit's 2^x.  All of them
 // exist from sm_80 on and run on Hopper (sm_90a) unchanged.

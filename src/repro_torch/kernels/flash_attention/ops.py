@@ -18,9 +18,18 @@ they come out of the attention layer's projections and returns
   logsumexp ``lse`` (fp32, (B, H, S)) for the backward; under
   ``torch.no_grad`` (serving) it writes none and is the same launch as
   before training existed.
-* backward: CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (three
-  kernels, no atomics: dK and dV a key tile, then dQ a query tile) from
-  q, k, v, o, dO and lse, and return gradients in the input dtype.
+* backward: CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (no
+  atomics: dK and dV a key tile, then dQ a query tile) from q, k, v, o,
+  dO and lse, and return gradients in the input dtype.  The route
+  follows the dtype.  bf16 (the ``[train]`` path) runs every product on
+  the tensor cores (``wgmma``, one warpgroup a 64-row tile, P and dS
+  rounded to bf16 in registers) with ``cp.async`` rings of bf16 tiles,
+  and needs every base pointer 16-byte aligned; it splits a GQA
+  group's query heads over ``bwd_plan(...)`` chunks of blocks, whose
+  fp32 partials of dK and dV (``torch.empty`` scratch here) a last pass
+  sums in chunk order.  fp32, held to 1e-4 of scale, keeps fp32 FMA
+  tiles on the CUDA cores.  Both are bound by operations: 5 products at
+  989 TFLOP/s in bf16 (the kernels do 7, the score products twice).
 * vmap: a ``torch.func.vmap`` over the Function (the FL runtimes'
   per-client loss) folds the vmapped axis into B and calls the Function
   once, since the kernel cannot read a batched tensor's storage.
@@ -43,13 +52,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
 # kernel launches since the last reset, forward and backward (one a
-# wrapper call; a backward call is three CUDA launches); chip_smoke.py
-# reads them to show that a run went through the kernels
+# wrapper call; a backward call is three CUDA launches, four for a bf16
+# one whose GQA group is split); chip_smoke.py reads them to show that a
+# run went through the kernels
 launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+BWD_TILE = 64              # queries and keys a tile of the bf16 backward
+BWD_BLOCKS_PER_SM = 2      # its dK/dV blocks resident an SM at hd 128 (255 registers, 100 KB)
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,7 +77,7 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     fn = build.library("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -120,6 +132,14 @@ def _launch(q, k, v, window, need_lse=False):
     return out, lse
 
 
+def bwd_plan(B, S, H, KV, sms):
+    """Query-head chunks of a GQA group in the bf16 backward's dK/dV
+    launch: the fewest that give about two waves of blocks on ``sms``
+    SMs, at most the group's G = H // KV heads (1 where G is 1)."""
+    blocks = -(-S // BWD_TILE) * KV * B
+    return max(1, min(H // KV, -(-2 * sms * BWD_BLOCKS_PER_SM // blocks)))
+
+
 def _launch_bwd(q, k, v, o, do, lse, window):
     """The backward kernels: (dq, dk, dv) in q's dtype."""
     global bwd_launches
@@ -129,14 +149,31 @@ def _launch_bwd(q, k, v, o, do, lse, window):
                         f"got {q.dtype}, {o.dtype}, {do.dtype}, {lse.dtype}")
     B, S, H, hd = q.shape
     KV = k.shape[2]
-    q, k, v, o, do, lse = (x.contiguous() for x in (q, k, v, o, do, lse))
+    if (o.shape != q.shape or do.shape != q.shape or k.shape != (B, S, KV, hd)
+            or v.shape != k.shape or lse.shape != (B, H, S)):
+        raise ValueError(f"flash_attention backward takes q, o, dO (B,S,H,hd), k, v (B,S,KV,hd) "
+                         f"and lse (B,H,S), got {tuple(q.shape)}, {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(lse.shape)}")
+    # contiguous, and for bf16 (16-byte cp.async and vector loads) 16-byte aligned
+    q, k, v, o, do, lse = (x.clone(memory_format=torch.contiguous_format)
+                           if not x.is_contiguous() or x.data_ptr() % 16 else x
+                           for x in (q, k, v, o, do, lse))
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
+        chunks = 1
+        if q.dtype == torch.bfloat16:
+            chunks = bwd_plan(B, S, H, KV, torch.cuda.get_device_properties(q.device)
+                              .multi_processor_count)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        dvec = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        sp = -(-S // BWD_TILE) * BWD_TILE
+        dvec = torch.empty(2 * B * H * sp, dtype=torch.float32, device=q.device)
+        part = (torch.empty(2 * chunks * B * S * KV * hd, dtype=torch.float32, device=q.device)
+                if chunks > 1 else None)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 _DTYPES[q.dtype], B, S, H, KV, hd, window or 0, 1.0 / hd ** 0.5,
+                 part.data_ptr() if part is not None else None, chunks, _DTYPES[q.dtype],
+                 B, S, H, KV, hd, window or 0, 1.0 / hd ** 0.5,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA error {err}")

@@ -474,6 +474,30 @@ class TestLinearScanLayout:
         assert not st[:, :, K:].any() and not st[..., V:].any()   # padding stays zero
 
 
+# the bf16 backward's launch plan: the chunks of a GQA group (ops.bwd_plan)
+@pytest.mark.parametrize("B,S,H,KV,sms,want", [
+    (4, 2048, 24, 2, 132, 3), (4, 1024, 36, 36, 132, 1), (1, 256, 12, 1, 132, 12),
+    (2, 300, 4, 4, 132, 1), (8, 4096, 24, 2, 132, 1), (2, 1000, 24, 2, 132, 9)])
+def test_bwd_plan_gives_two_waves_within_the_group(B, S, H, KV, sms, want):
+    chunks = fa_ops.bwd_plan(B, S, H, KV, sms)
+    blocks = -(-S // fa_ops.BWD_TILE) * KV * B
+    assert chunks == want and 1 <= chunks <= H // KV
+    assert chunks == H // KV or chunks * blocks >= 2 * sms * fa_ops.BWD_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("bad", ["o", "do", "k", "lse"])
+def test_launch_bwd_rejects_mismatched_shapes(bad):
+    """The backward's wrapper checks every shape before a pointer reaches
+    the kernel (the check runs before any build, so on the CPU too)."""
+    B, S, H, KV, hd = 1, 8, 4, 2, 32
+    x = {"q": torch.zeros(B, S, H, hd), "k": torch.zeros(B, S, KV, hd),
+         "v": torch.zeros(B, S, KV, hd), "o": torch.zeros(B, S, H, hd),
+         "do": torch.zeros(B, S, H, hd), "lse": torch.zeros(B, H, S)}
+    x[bad] = x[bad][..., :-1]
+    with pytest.raises(ValueError, match="backward takes"):
+        fa_ops._launch_bwd(x["q"], x["k"], x["v"], x["o"], x["do"], x["lse"], None)
+
+
 # ------------------------------------------------------------ on the card ---
 
 @pytest.fixture
@@ -695,11 +719,67 @@ def test_gpu_flash_attention_backward_matches_plain(cuda, B, S, H, KV, hd, windo
         assert err <= FA_BWD_TOL[dtype] * max(float(b.float().abs().max()), 1e-2), err
 
 
+def _check_bwd(cuda, seed, B, S, H, KV, hd, window, dtype):
+    """The kernel's gradients against the plain backward, each within
+    FA_BWD_TOL of its scale.  The scale is floored at 0.1: where every
+    query sees only its own key (S = 1, window 1) the exact dq and dk are
+    0 and the kernel's are the rounding of dP - D, two sums of hd products
+    (1e-6 to 3e-6 in fp32 at hd 64, card run); every other scale must lie
+    above 0.1, so that the floor binds nowhere else."""
+    dt = TORCH_DT[dtype]
+    q, k, v, do = _grad_case(cuda, seed, B, S, H, KV, hd, dt)
+    before = fa_ops.bwd_launches
+    got = _kernel_grads(q, k, v, do, window)
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_launches == before + 1
+    want = fa_ref.gqa_attention_bwd(q, k, v, do, window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dt and bool(torch.isfinite(a).all()), name
+        err, scale = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+        assert scale > 0.1 or (name != "dv" and (S == 1 or window == 1)), (name, scale)
+        assert err <= FA_BWD_TOL[dtype] * max(scale, 0.1), (name, err)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 1000])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gpu_flash_attention_backward_reproducible(cuda, dtype):
-    """No atomics: two backward launches on one input give the same bits."""
-    q, k, v, do = _grad_case(cuda, 7, 2, 700, 24, 2, 128, TORCH_DT[dtype])
+def test_gpu_flash_attention_backward_tile_edges(cuda, S, hd, dtype):
+    """S on either side of the bf16 route's 64-row tiles, at every head
+    dim, with a group of 3 query heads split over chunks."""
+    _check_bwd(cuda, S + hd, 1, S, 3, 1, hd, None, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window", [(300, 1), (300, 37), (300, 100), (513, 191), (129, 64),
+                                      (1000, 65)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_flash_attention_backward_windows_ending_inside_a_tile(cuda, S, window, dtype):
+    _check_bwd(cuda, window, 2, S, 6, 2, 64, window, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 300, 12, 12, 64),     # G = 1: dK and dV written directly
+    (2, 257, 6, 2, 128),      # G = 3
+    (1, 200, 12, 1, 32),      # G = 12, B H far too small to fill the card: 12 chunks
+    (4, 512, 24, 2, 128)])    # starcoder2's group of 12 at a short S
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_flash_attention_backward_gqa_groups(cuda, B, S, H, KV, hd, dtype):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunks = fa_ops.bwd_plan(B, S, H, KV, sms)
+    assert 1 <= chunks <= H // KV and (chunks > 1) == (H // KV > 1)
+    _check_bwd(cuda, H, B, S, H, KV, hd, None, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 700, 24, 2, 128), (4, 2048, 24, 2, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_flash_attention_backward_reproducible(cuda, B, S, H, KV, hd, dtype):
+    """No atomics: two backward launches on one input give the same bits,
+    also at starcoder2_3b's shape, where the bf16 route splits each GQA
+    group over chunks and sums their partials."""
+    q, k, v, do = _grad_case(cuda, 7, B, S, H, KV, hd, TORCH_DT[dtype])
     a, b = _kernel_grads(q, k, v, do, None), _kernel_grads(q, k, v, do, None)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
