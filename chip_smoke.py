@@ -84,11 +84,13 @@ drive the port's main paths through their public entry points.
    grad_diff_norm launch a step), the gated collective on 2 spawned
    ranks (gloo, CUDA tensors) on the reference test's inputs, and the
    federated LM example, afl against vafl.
-11. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b and
-   rwkv6_3b at their full published configurations (random weights from
-   a seed): 4 prompts of 2048 tokens, 32 greedy tokens each (kernels
-   flash_attention and linear_scan in the prefill), then a prefill of
-   128 tokens held against 128 stepwise decode steps.
+11. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b,
+   rwkv6_3b and zamba2_7b at their full published configurations
+   (random weights from a seed): 4 prompts of 2048 tokens, 32 greedy
+   tokens each (kernels flash_attention and linear_scan in the prefill:
+   one a layer, and for zamba2_7b one linear_scan a Mamba2 layer, 68,
+   and one flash_attention a shared-attention invocation, 13), then a
+   prefill of 128 tokens held against 128 stepwise decode steps.
 
 Run it from the root of a checkout:
 
@@ -140,6 +142,7 @@ GD_SHAPES = [(7, 42698), (1, 2 ** 24 + 123)]   # main path: 7 clients x CNN para
 TQ_SIZES = [42698, 2 ** 24 + 123]
 RESIDENT_LIMIT = 8 * 13312 * 4   # elements of one leaf the encode's resident route takes
 PROFILER_TRIES = 10              # readings of one call before an empty profile fails
+PROFILE_PAD = 32                 # uncounted spin kernels opening a profiled region
 # tree_grad_diff_sq_norm cases: (leaves, W); the CNN at W = 7 is a round's
 # call, at W = 1 an event's
 GRAD_TREES = [("cnn", 7), ("cnn1", 1), ("one", 1)]
@@ -150,19 +153,36 @@ ENC_CASES = [("cnn", "randn"), ("mlp", "randn"), ("one", RESIDENT_LIMIT),
 TQ_OPS_PER_ELEM = 24             # 10 hash + 14 float/convert/select ops (csrc/topk_quant.cu)
 # flash_attention cases: (B, S, H, KV, hd, window, dtype); the first is
 # starcoder2_3b's prefill in serve(batch=4, prompt_len=2048), window 4096;
-# then a ragged S, a window shorter than S, fp32, and a large shape
+# then a ragged S, a window shorter than S, fp32, and a large shape; then
+# zamba2_7b's shared attention in the same serve call (head_dim 112, no
+# GQA, causal), a ragged S, a window and fp32 at 112
 FA_CASES = [(4, 2048, 24, 2, 128, 4096, "bfloat16"), (4, 1000, 24, 2, 128, 4096, "bfloat16"),
             (4, 2048, 24, 2, 128, 256, "bfloat16"), (2, 1024, 24, 2, 128, None, "float32"),
-            (4, 4096, 24, 2, 128, 4096, "bfloat16")]
+            (4, 4096, 24, 2, 128, 4096, "bfloat16"),
+            (4, 2048, 32, 32, 112, None, "bfloat16"), (4, 1000, 32, 32, 112, None, "bfloat16"),
+            (4, 2048, 32, 32, 112, 256, "bfloat16"), (2, 1024, 32, 32, 112, None, "float32")]
+FA_ZAMBA2 = FA_CASES[5]
 FA_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
-# linear_scan cases: (B, S, H, K, V, form, la); the first is rwkv6_3b's
-# prefill in serve(batch=4, prompt_len=2048): bf16 r/k/v, fp32 log-decay, u;
-# then the Mamba2 form, a ragged S, decay at the clamp, a large shape, and
-# batches of 1 (40 (b, h): split in two V slices) and 3 (120: one an SM)
-LS_CASES = [(4, 2048, 40, 64, 64, "rwkv", "model"), (4, 2048, 40, 64, 64, "mamba", "model"),
-            (4, 1000, 40, 64, 64, "rwkv", "model"), (4, 2048, 40, 64, 64, "rwkv", "clamp"),
-            (8, 4096, 40, 64, 64, "rwkv", "model"), (1, 2048, 40, 64, 64, "rwkv", "model"),
-            (3, 2048, 40, 64, 64, "rwkv", "model")]
+# linear_scan cases: (B, S, H, K, V, form, la, initial state); the first
+# is rwkv6_3b's prefill in serve(batch=4, prompt_len=2048): bf16 r/k/v,
+# fp32 log-decay, u; then the Mamba2 form, a ragged S, decay at the clamp,
+# a large shape, and batches of 1 (40 (b, h): split in two V slices) and
+# 3 (120: one an SM); then the per-head (Mamba2) form, first zamba2_7b's
+# prefill in the same serve call: C and B broadcast over 112 heads, bf16,
+# la -softplus(dt) per head as the model draws it; then log-decays spread
+# over [-20, 0] (where a clamp at -8 would show), a ragged S, and an
+# initial state
+LS_CASES = [(4, 2048, 40, 64, 64, "rwkv", "model", False),
+            (4, 2048, 40, 64, 64, "mamba", "model", False),
+            (4, 1000, 40, 64, 64, "rwkv", "model", False),
+            (4, 2048, 40, 64, 64, "rwkv", "clamp", False),
+            (8, 4096, 40, 64, 64, "rwkv", "model", False),
+            (1, 2048, 40, 64, 64, "rwkv", "model", False),
+            (3, 2048, 40, 64, 64, "rwkv", "model", False),
+            (4, 2048, 112, 64, 64, "mamba-head", "model", False),
+            (4, 2048, 112, 64, 64, "mamba-head", "spread", False),
+            (4, 1000, 112, 64, 64, "mamba-head", "spread", False),
+            (4, 2048, 112, 64, 64, "mamba-head", "spread", True)]
 LS_TOL = {"y": 3e-2, "state": 2e-4}
 LS_CHUNK = 32                    # rwkv6_3b's chunk of the TPU kernel's chunked form
 # what each kernel route is built from (csrc/*.cu)
@@ -205,6 +225,10 @@ TC_FUNCS = {"flash_attention": ("flash_fwd_bf16",), "linear_scan": ("scan_bf16",
             "flash_attention_bwd": ("dkdv_bf16", "dq_bf16")}
 SERVE = dict(batch=4, prompt_len=2048, gen=32)
 CONSISTENCY_LEN = 128            # prefill vs stepwise decode at full width
+# zamba2_7b's fp32 prefill-vs-stepwise gap is also read at (depth, the
+# decode KV cache's dtype): the first 12 layers and the full 81, with the
+# serving default's bf16 cache and with an fp32 one
+ZAMBA2_GAP_READINGS = ((12, "bfloat16"), (12, "float32"), (81, "float32"))
 
 
 def fail(msg: str) -> None:
@@ -382,17 +406,25 @@ def phase_topk_quant(rows: dict):
 def device_activity(fn) -> dict:
     """What one call of ``fn`` ran on the card, from ``torch.profiler``:
     {"kernels": [[name, device us], ...], "copies": [[name, us], ...]} in
-    launch order, with the names the profiler gives them."""
+    launch order, with the names the profiler gives them.  CUPTI sometimes
+    misses the first kernel of a profiled region (on an H100: the
+    streaming encode's ``stream_hist<0>``, read as 4 kernels of 5), so the
+    region opens with ``PROFILE_PAD`` spin kernels that are not counted,
+    as in ``_profile_counts``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(10_000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     kernels, copies = [], []
     for e in sorted(prof.events(), key=lambda e: e.time_range.start):
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and "spin_kernel" not in e.name):
             (copies if e.name.startswith(("Memcpy", "Memset")) else kernels).append(
                 [e.name, e.time_range.elapsed_us()])
     return {"kernels": kernels, "copies": copies}
@@ -635,47 +667,72 @@ def _linear_scan_ops(B, S, H, K, V) -> int:
 
 def phase_linear_scan(rows: list):
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels.linear_scan import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for B, S, H, K, V, form, la_kind in LS_CASES:
-        bf = torch.bfloat16
-        q = torch.randn(B, S, H, K, generator=gen, device="cuda").to(bf)
-        k = torch.randn(B, S, H, K, generator=gen, device="cuda").to(bf)
-        v = torch.randn(B, S, H, V, generator=gen, device="cuda").to(bf)
-        if la_kind == "model":   # rwkv6's -exp(w0 + lora) around w0 = -0.6
-            la = -torch.exp(0.5 * torch.randn(B, S, H, K, generator=gen, device="cuda") - 0.6)
-        else:                    # a fifth of the entries below the clamp at -8
-            la = -10.0 * torch.rand(B, S, H, K, generator=gen, device="cuda")
-        u = ((torch.rand(H, K, generator=gen, device="cuda") - 0.5) if form == "rwkv" else None)
-        cur = form == "mamba"
-        y, st = ops.recurrence(q, k, v, la, u, include_current=cur)
-        wy, ws = ref.recurrence(q, k, v, la, u, include_current=cur)
+    bf = torch.bfloat16
+
+    def draw(*shape, uniform=False):
+        return (torch.rand if uniform else torch.randn)(*shape, generator=gen, device="cuda")
+
+    for B, S, H, K, V, form, la_kind, with_state in LS_CASES:
+        head = form == "mamba-head"
+        if head:    # C and B (B, S, K) broadcast over the heads: head stride 0, read in place
+            q, k = (draw(B, S, K).to(bf)[:, :, None].expand(B, S, H, K) for _ in range(2))
+        else:
+            q, k = draw(B, S, H, K).to(bf), draw(B, S, H, K).to(bf)
+        v = draw(B, S, H, V).to(bf)
+        la_shape = (B, S, H) if head else (B, S, H, K)
+        if la_kind == "model" and head:   # -exp(A_log) softplus(dt + dt_bias) at A_log = dt_bias = 0
+            la = -F.softplus(draw(*la_shape))
+        elif la_kind == "model":          # rwkv6's -exp(w0 + lora) around w0 = -0.6
+            la = -torch.exp(0.5 * draw(*la_shape) - 0.6)
+        elif la_kind == "clamp":          # a fifth of the entries below the clamp at -8
+            la = -10.0 * draw(*la_shape, uniform=True)
+        else:                             # "spread": three fifths below the per-dim clamp
+            la = -20.0 * draw(*la_shape, uniform=True)
+        u = draw(H, K, uniform=True) - 0.5 if form == "rwkv" else None
+        s0 = draw(B, H, K, V) if with_state else None
+        cur = form != "rwkv"
+        y, st = ops.recurrence(q, k, v, la, u, include_current=cur, initial_state=s0)
+        wy, ws = ref.recurrence(q, k, v, la, u, include_current=cur, initial_state=s0)
         torch.cuda.synchronize()
         err_y = float((y.float() - wy.float()).abs().max())
         err_s = float((st - ws).abs().max())
-        case = f"(B {B}, S {S}, H {H}, K {K}, V {V}) {form} form, la {la_kind}, bf16 q/k/v"
+        case = (f"(B {B}, S {S}, H {H}, K {K}, V {V}) {form} form, la {la_kind}"
+                f"{', initial state' if with_state else ''}, bf16 q/k/v")
         if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
                 and torch.allclose(y.float(), wy.float(), rtol=LS_TOL["y"], atol=LS_TOL["y"])
                 and torch.allclose(st, ws, rtol=LS_TOL["state"], atol=LS_TOL["state"])):
             fail(f"linear_scan {case}: max abs err y {err_y:.3g}, final state {err_s:.3g} "
                  f"beyond {LS_TOL}")
         say(f"[check] linear_scan {case}: max abs err y {err_y:.6g} (rtol = atol = "
-            f"{LS_TOL['y']}), final state {err_s:.6g} (rtol = atol = {LS_TOL['state']})")
-        nbytes = (B * S * H * (2 * K * 2 + V * 2 + K * 4 + V * 2)   # q, k, v, la read; y written
-                  + (H * K * 4 if u is not None else 0) + B * H * K * V * 4)
+            f"{LS_TOL['y']}), final state {err_s:.6g} (rtol = atol = {LS_TOL['state']})"
+            f"{' against the unclamped plain scan' if head else ''}")
+        # the function's bytes: q and k a head (the per-head form's C and B
+        # once a (b, s); the kernel reads them once a head, L2-served), v
+        # and y a head, la a (b, s, head) or a dim, u, the states
+        nbytes = (B * S * (2 * K * 2 * (1 if head else H) + H * (V * 2 * 2 + 4 * (1 if head else K)))
+                  + (H * K * 4 if u is not None else 0) + B * H * K * V * 4 * (2 if with_state else 1))
         nops = _linear_scan_ops(B, S, H, K, V)
         bms, bby = bound_ms(nbytes, nops, TF32_OPS_PER_S)
+        design = DESIGN[("linear_scan", "bfloat16")] + (
+            "; la per head read a float a step, unclamped; C and B read in place through a head "
+            "stride of 0" if head else "")
         rows.append({
             "name": "linear_scan", "route": "cuda", "source": "src/repro_torch/csrc/linear_scan.cu",
             "replaces": "src/repro/kernels/linear_scan/kernel.py:78",
-            "shape": [B, S, H, K, V], "form": form, "la": la_kind, "dtype": "bfloat16",
-            "design": DESIGN[("linear_scan", "bfloat16")],
+            "shape": [B, S, H, K, V], "form": form, "la": la_kind, "initial_state": with_state,
+            "dtype": "bfloat16", "design": design,
             "max_abs_err": max(err_y, err_s), "max_abs_err_y": err_y, "max_abs_err_state": err_s,
-            "ms": cuda_ms(lambda: ops.recurrence(q, k, v, la, u, include_current=cur), 20, 3),
-            "plain_ms": cuda_ms(lambda: ref.recurrence(q, k, v, la, u, include_current=cur), 3, 1),
+            "ms": cuda_ms(lambda: ops.recurrence(q, k, v, la, u, include_current=cur,
+                                                 initial_state=s0), 20, 3),
+            "plain_ms": cuda_ms(lambda: ref.recurrence(q, k, v, la, u, include_current=cur,
+                                                       initial_state=s0), 3, 1),
             "bound_ms": bms, "bound_by": bby, "bound_bytes": nbytes, "bound_ops": nops,
+            "kernel_read_bytes_qk": 2 * B * S * H * K * 2,
             "library_ms": None, "library_call": None})
-        del q, k, v, la, y, wy
+        del q, k, v, la, y, wy, s0
     torch.cuda.empty_cache()
 
 
@@ -692,10 +749,11 @@ def _reset_launches():
     return lambda: {name: getattr(m, attr) for name, (m, attr) in counters.items()}
 
 
-def _prefill_vs_stepwise(cfg, params) -> tuple:
+def _prefill_vs_stepwise(cfg, params, cache_dtype: str = "bfloat16") -> tuple:
     """Last-position logits of one prefill of CONSISTENCY_LEN tokens (the
-    kernel path) against as many decode_step calls (plain PyTorch):
-    (max abs difference, scale = max |stepwise logits|)."""
+    kernel path) against as many decode_step calls (plain PyTorch) over a
+    KV cache of ``cache_dtype``: (max abs difference, scale = max
+    |stepwise logits|)."""
     import numpy as np
     import torch
     from repro_torch.models import decoder
@@ -704,7 +762,7 @@ def _prefill_vs_stepwise(cfg, params) -> tuple:
         0, cfg.vocab_size, size=(2, L))).to("cuda")
     with torch.no_grad():
         lp, _, _ = decoder.prefill(cfg, params, prompt, L)
-        cache = decoder.init_cache(cfg, params, 2, L)
+        cache = decoder.init_cache(cfg, params, 2, L, dtype=getattr(torch, cache_dtype))
         for t in range(L):
             ls, cache = decoder.decode_step(cfg, params, cache, prompt[:, t:t + 1], t)
     if not (bool(torch.isfinite(lp).all()) and bool(torch.isfinite(ls).all())):
@@ -712,10 +770,38 @@ def _prefill_vs_stepwise(cfg, params) -> tuple:
     return float((lp.float() - ls.float()).abs().max()), float(ls.float().abs().max())
 
 
-def phase_serve(arch: str, kernel: str, check_dtype: str) -> dict:
+def _prefill_launches(cfg) -> dict:
+    """The kernel launches of one prefill: one flash_attention an
+    attention layer or shared-attention invocation, one linear_scan an
+    RWKV6 or Mamba2 layer."""
+    kernel = {"attn": "flash_attention", "shared_attn": "flash_attention",
+              "rwkv6": "linear_scan", "mamba2": "linear_scan"}
+    want = {}
+    for kind in cfg.pattern():
+        want[kernel[kind]] = want.get(kernel[kind], 0) + 1
+    return want
+
+
+def _cut_depth(cfg, params, depth: int) -> tuple:
+    """The first ``depth`` layers of ``cfg`` and ``params`` (the same
+    weights, no copy); ``depth`` must end a layer group."""
+    from repro_torch.models import decoder
+    n = 0
+    for g, (_, count) in enumerate(decoder.layer_groups(cfg)):
+        n += count
+        if n == depth:
+            return (cfg.replace(num_layers=depth, layer_pattern=cfg.pattern()[:depth]),
+                    dict(params, groups=params["groups"][:g + 1]))
+    fail(f"{cfg.name}: depth {depth} does not end a layer group")
+
+
+def phase_serve(arch: str, check_dtype: str, readings: tuple = ()) -> dict:
     """serve() at the architecture's full configuration, then a full-width
     check of prefill (the kernel path) against stepwise decode (plain
-    PyTorch), gated at 2e-2 of the logits' scale in ``check_dtype``."""
+    PyTorch) over the bf16 KV cache serving uses, gated at 2e-2 of the
+    logits' scale in ``check_dtype``; the same check at each of
+    ``readings``, (depth, cache dtype): the first layers of the same
+    weights, and the decode cache's dtype."""
     import torch
     from repro_torch.common.pytree import tree_leaves
     from repro_torch.launch.serve import serve
@@ -732,16 +818,25 @@ def phase_serve(arch: str, kernel: str, check_dtype: str) -> dict:
         f"{sum(x.numel() for x in tree_leaves(params))} parameters drawn in "
         f"{cfg.param_dtype} in {time.perf_counter() - h0:.1f} s")
 
-    def check(p):
-        err, scale = _prefill_vs_stepwise(cfg.replace(compute_dtype=check_dtype), p)
+    gaps = {}
+    has_kv = any(kind in ("attn", "shared_attn") for kind in cfg.pattern())
+
+    def check(c, p, cache_dtype="bfloat16"):
+        err, scale = _prefill_vs_stepwise(c.replace(compute_dtype=check_dtype), p, cache_dtype)
+        kv = f", {cache_dtype} KV cache" if has_kv else ""
+        gaps[f"{c.num_layers} layers{kv}"] = err / scale
         say(f"[serve] {arch}: prefill of {CONSISTENCY_LEN} tokens vs {CONSISTENCY_LEN} "
-            f"decode_step calls at full width, {check_dtype} compute: last-position logits "
-            f"max abs diff {err:.4g} of scale {scale:.4g} ({err / scale:.3g}; limit 2e-2)")
+            f"decode_step calls at full width, {c.num_layers} layers, {check_dtype} compute{kv}: "
+            f"last-position logits max abs diff {err:.4g} of scale {scale:.4g} "
+            f"({err / scale:.3g}; limit 2e-2)")
         if not err <= 2e-2 * scale:
-            fail(f"{arch}: prefill vs stepwise decode {err:.4g} apart, beyond 2e-2 x {scale:.4g}")
+            fail(f"{arch}: prefill vs stepwise decode {err:.4g} apart at {c.num_layers} layers, "
+                 f"beyond 2e-2 x {scale:.4g}")
 
     if check_dtype == "float32":
-        check(params)
+        check(cfg, params)
+        for depth, cache_dtype in readings:
+            check(*_cut_depth(cfg, params, depth), cache_dtype)
     params = decoder.cast_params(cfg, params)       # once; the fp32 draws are freed here
     leaves = tree_leaves(params)
     say(f"[serve] {arch}: cast to {cfg.compute_dtype}: "
@@ -757,20 +852,22 @@ def phase_serve(arch: str, kernel: str, check_dtype: str) -> dict:
     if toks.shape != (SERVE["batch"], SERVE["gen"]) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         fail(f"{arch}: serve() returned tokens of shape {toks.shape} in "
              f"[{toks.min()}, {toks.max()}]")
-    want = {k: (cfg.num_layers if k == kernel else 0) for k in launches}
+    per_prefill = _prefill_launches(cfg)
+    want = {k: per_prefill.get(k, 0) for k in launches}
     if launches != want:
-        fail(f"{arch}: kernel launches {launches}, expected {want} (one {kernel} per layer "
-             f"in the prefill, none in decode)")
+        fail(f"{arch}: kernel launches {launches}, expected {want} (one a layer or shared "
+             f"invocation in the prefill, none in decode)")
     say(f"[serve] {arch}: serve(batch={SERVE['batch']}, prompt_len={SERVE['prompt_len']}, "
         f"gen={SERVE['gen']}): prefill {stats['prefill_s']:.4f} s, decode {stats['decode_s']:.4f} s "
         f"({stats['decode_tok_per_s']:.2f} tok/s), logits finite, kernel launches {launches}, "
         f"sample {toks[0, :8].tolist()}")
     if check_dtype == "bfloat16":
-        check(params)
+        check(cfg, params)
     peak = torch.cuda.max_memory_allocated() / 1e9
     del params, leaves
     torch.cuda.empty_cache()
-    return dict(stats, launches=launches[kernel], peak_gb=peak)
+    return dict(stats, launches={k: launches[k] for k in per_prefill}, peak_gb=peak,
+                stepwise_gap_by_depth=gaps)
 
 
 def algo1_federation(device: str = "cuda", init=None):
@@ -1225,7 +1322,6 @@ CKPT_RUNS = [   # (name, Federation.run overrides, checkpoint_every) on the main
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy")
 OBS_LAPS = 2                     # (off, on, on, off) turns of the overhead lap
-PROFILE_PAD = 32                 # uncounted spin kernels opening a profiled region
 KILL_TIMEOUT_S = 300             # the killed child's first checkpoint must land by then
 
 
@@ -2921,8 +3017,11 @@ def main() -> None:
     # reference as in the port (PERF.md §6; the bf16 gate at depth 2 is
     # tests/test_torch_llm_serve.py's gpu test), while the dense model
     # holds 2e-2 in bf16 at full depth
-    served = {"starcoder2_3b": phase_serve("starcoder2_3b", "flash_attention", "bfloat16"),
-              "rwkv6_3b": phase_serve("rwkv6_3b", "linear_scan", "float32")}
+    # zamba2_7b's is gated in fp32 as rwkv6_3b's: a recurrent stack, 81
+    # layers deep; its gap is also read at 12 layers and with an fp32 cache
+    served = {"starcoder2_3b": phase_serve("starcoder2_3b", "bfloat16"),
+              "rwkv6_3b": phase_serve("rwkv6_3b", "float32"),
+              "zamba2_7b": phase_serve("zamba2_7b", "float32", readings=ZAMBA2_GAP_READINGS)}
     mark("serve")
     say("[time] phases (host seconds): " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
@@ -2965,10 +3064,24 @@ def main() -> None:
                    fl_wire_launches=fw_counts["topk_quant"],
                    fl_wire_child_launches=fl_wire["process"]["child_launches"],
                    figures_launches=fig_counts["topk_quant"])
-    main_fa = dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"],
-                   tensor_core_instructions=sass["flash_attention"])
-    main_ls = dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"],
-                   tensor_core_instructions=sass["linear_scan"])
+    # each serving row keeps its first model's shape and adds zamba2_7b's
+    fa_z = next(r for r in fa_rows if (*r["shape"], r["window"], r["dtype"]) == FA_ZAMBA2)
+    ls_z = next(r for r in ls_rows if r["form"] == "mamba-head")
+    zl = served["zamba2_7b"]["launches"]
+
+    def with_zamba2(row, z, launches):
+        return dict(row, zamba2_shape=z["shape"], zamba2_ms=z["ms"], zamba2_bound_ms=z["bound_ms"],
+                    zamba2_bound_by=z["bound_by"], zamba2_plain_ms=z["plain_ms"],
+                    zamba2_library_ms=z["library_ms"], zamba2_max_abs_err=z["max_abs_err"],
+                    zamba2_launches=launches)
+
+    main_fa = with_zamba2(dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"]
+                               ["flash_attention"],
+                               tensor_core_instructions=sass["flash_attention"]),
+                          fa_z, zl["flash_attention"])
+    main_ls = with_zamba2(dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"]["linear_scan"],
+                               tensor_core_instructions=sass["linear_scan"]),
+                          ls_z, zl["linear_scan"])
     say(f"[time] main path seconds per round (3 rounds, host clock, synchronized): "
         f"vafl {secs['vafl'] / 3:.4f}, afl {secs['afl'] / 3:.4f}")
     say("[time] event path (host clock, synchronized): "
@@ -3011,14 +3124,18 @@ def main() -> None:
         f"fault-free {fc['fault_free_s']:.4f} s, over inproc {fc['inproc']:.4f} s "
         f"({fc['inproc'] / fc['fault_free_s']:.2f} x), over socket {fc['socket']:.4f} s "
         f"({fc['socket'] / fc['fault_free_s']:.2f} x)")
-    for arch, row in (("starcoder2_3b", main_fa), ("rwkv6_3b", main_ls)):
-        st = served[arch]
-        share = st["launches"] * row["ms"] / 1e3 / st["prefill_s"]
+    kernel_ms = {("starcoder2_3b", "flash_attention"): fa_rows[0]["ms"],
+                 ("rwkv6_3b", "linear_scan"): ls_rows[0]["ms"],
+                 ("zamba2_7b", "flash_attention"): fa_z["ms"], ("zamba2_7b", "linear_scan"): ls_z["ms"]}
+    for arch, st in served.items():
+        parts = [(name, n, kernel_ms[(arch, name)]) for name, n in st["launches"].items()]
         say(f"[time] serve {arch} (host clock, synchronized): prefill {st['prefill_s']:.4f} s "
             f"for {SERVE['batch']} x {SERVE['prompt_len']} tokens, decode "
             f"{st['decode_tok_per_s']:.2f} tok/s ({SERVE['batch']} x {SERVE['gen']} tokens in "
-            f"{st['decode_s']:.4f} s); {st['launches']} {row['name']} launches x {row['ms']:.4f} ms "
-            f"= {share:.1%} of the prefill; peak device memory {st['peak_gb']:.2f} GB")
+            f"{st['decode_s']:.4f} s); "
+            + ", ".join(f"{n} {name} launches x {ms:.4f} ms = {n * ms / 1e3 / st['prefill_s']:.1%}"
+                        for name, n, ms in parts)
+            + f" of the prefill; peak device memory {st['peak_gb']:.2f} GB")
     # the backward's row: the train path's shape (minicpm_2b, bf16, no
     # window); its launches are the [train] path's, one 5-step
     # make_train_step run's beside them

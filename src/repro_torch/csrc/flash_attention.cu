@@ -47,7 +47,9 @@
 // only the tiles that cross its diagonal, the window's edge or S.  Rows
 // must be 16-byte aligned for cp.async; the wrapper (ops.py) copies a
 // tensor whose base or strides are not.  Shared memory: (128 + 4 * 64)
-// rows of D + 8 bf16, 104,448 bytes at D = 128.
+// rows of D + 8 bf16, 104,448 bytes at D = 128 and 92,160 at D = 112
+// (zamba2_7b's shared attention; a row of 240 bytes still puts the eight
+// rows of an ldmatrix in distinct banks).
 //
 // fp32 (held to 2e-5, which TF32 products would break): the first
 // kernel's plain fp32 FMA tiles on the CUDA cores.  One block of 256
@@ -57,6 +59,8 @@
 // rows' running max and denominator; a row's 16 owners sit in one
 // half-warp and reduce with shuffles.  K rows are padded by one float so
 // that 16 rows read at one depth fall in 16 banks.
+//
+// Head dims 32, 64, 112 and 128, a template instance each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,14 +96,17 @@ constexpr size_t bf16_smem_bytes() {
 
 // ROWS rows of HD bf16 from src (row stride `stride` elements) into dst
 // (pitch HD + 8), starting at sequence position s0; rows past S are zeros.
+// A tile whose chunks do not split evenly over the block (64 rows at
+// HD = 112: 896 chunks over 256 threads) ends in a guarded pass.
 template <int HD, int ROWS>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long stride, int s0, int S, int tid) {
   constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  static_assert(ROWS * kChunks % kThreads == 0, "tile must split evenly over the block");
+  constexpr int kTotal = ROWS * kChunks;
 #pragma unroll
-  for (int j = 0; j < ROWS * kChunks / kThreads; ++j) {
+  for (int j = 0; j < (kTotal + kThreads - 1) / kThreads; ++j) {
     const int i = tid + j * kThreads;
+    if (kTotal % kThreads != 0 && i >= kTotal) break;
     const int r = i / kChunks, c = i % kChunks;
     const int s = s0 + r;
     const bool in = s < S;
@@ -459,6 +466,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   switch (hd) {
     case 32: return launch<32>(a, B, dtype, s);
     case 64: return launch<64>(a, B, dtype, s);
+    case 112: return launch<112>(a, B, dtype, s);
     case 128: return launch<128>(a, B, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }

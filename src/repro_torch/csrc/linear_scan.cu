@@ -10,13 +10,27 @@
 // with la clipped to [-8, 0].  q, k, la are (B, S, H, K) and v, y
 // (B, S, H, V), each read through its own strides; u is (H, K), indexed
 // by head (no broadcast to (B*H, K)); an optional initial state and the
-// final state are (B, H, K, V) fp32.  The TPU kernel keeps its state in
+// final state are (B, H, K, V) fp32.
+//
+// Per-head decay (Mamba2, la_per_head != 0): la is (B, S, H), one
+// log-decay a (b, t, head) that every row d of the state shares, read
+// through its (b, s, head) strides one float a step, and taken as it is,
+// without the clamp: the model's per-head path (repro's recurrence.py)
+// does not clamp, and Mamba2's -exp(A_log) softplus(dt) falls below -8
+// wherever dt is large.  Every exponent either route takes is a
+// difference of a non-increasing cumulative sum, so it stays <= 0 for any
+// la <= 0 and an underflow to 0 is the exact answer.  q and k may be
+// Mamba2's C and B broadcast over the heads (head stride 0): they are
+// read in place, once a head.  The TPU kernel keeps its state in
 // scratch and drops it; the decode cache needs it, so it is written out.
 //
 // Bound on an H100: device-memory bytes.  Each input element is read
 // once and y written once, about 4 * B * S * H * K * 4 bytes; the chunked
 // form's matrix products are a few tens of operations per byte, under
-// the tensor cores' ridge.
+// the tensor cores' ridge.  Per head (Mamba2 at zamba2_7b's prefill, B 4,
+// S 2048, H 112, K = V = 64): x and y a head, la a head and C, B once a
+// (b, s), 0.248 GB, 0.074 ms; this kernel reads C and B once a head (each
+// block its own), which L2 mostly serves.
 //
 // Two routes, chosen by the type of q, k, v:
 //
@@ -95,7 +109,7 @@ struct Args {
   void* y;
   float* s_out;      // (B, H, K, V)
   long long sq[3], sk[3], sv[3], sl[3], sy[3];  // element strides over (b, s, head)
-  int S, H, K, V, include_current;
+  int S, H, K, V, include_current, la_per_head;
 };
 
 // ------------------------------------------------------------ bf16 route
@@ -115,6 +129,7 @@ template <int NV>
 struct Stage {                           // one chunk's inputs, zero past S, K and V
   __nv_bfloat16 q[kC][kP], k[kC][kP], v[kC][NV + 8];
   float la[kC][kPL];                     // clamped la, then cum * log2(e) in place
+  float lh[kC];                          // per-head la (la_per_head), one a step
 };
 
 template <int NV>
@@ -162,6 +177,14 @@ __device__ __forceinline__ void load_chunk(Stage<NV>& s, const Args& a, const __
     const long long t = t0 + r;
     const bool in = t < a.S && v0 + c < a.V;
     mma::cp_async16(&s.v[r][c], in ? vg + t * a.sv[1] + c : vg, in ? 16 : 0);
+  }
+  if (a.la_per_head) {
+    for (int i = tid; i < kC; i += kTcThreads) {        // la per head: one float a step
+      const long long t = t0 + i;
+      const bool in = t < a.S;
+      mma::cp_async4(&s.lh[i], in ? lg + t * a.sl[1] : lg, in ? 4 : 0);
+    }
+    return;
   }
   for (int i = tid; i < kC * 16; i += kTcThreads) {  // la: 16 chunks of four floats a row
     const int r = i >> 4, c = (i & 15) * 4;
@@ -252,7 +275,8 @@ __global__ void __launch_bounds__(kTcThreads) scan_bf16(Args a) {
     }
     if (ci > 0) store_y(sm, a, yg, t0 - kC, v0, tid);  // the previous chunk's y
 
-    // 1. cum * log2(e) of the clamped log-decay and the decays exp(la):
+    // 1. cum * log2(e) of the log-decay (per dim clamped, per head as it
+    // is, the same in every column d) and the decays exp(la):
     // thread (column d, quarter p) scans steps 8p..8p+7 from 0, then the
     // quarters of a column (neighbouring lanes) pass their last sums on
     // in order, so that cum never rises from one step to the next
@@ -261,7 +285,8 @@ __global__ void __launch_bounds__(kTcThreads) scan_bf16(Args a) {
       float r[8], run = 0.f, off = 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float la = fminf(fmaxf(cs.la[8 * p + i][d], kLogAMin), 0.f);
+        const float la = a.la_per_head ? cs.lh[8 * p + i]
+                                       : fminf(fmaxf(cs.la[8 * p + i][d], kLogAMin), 0.f);
         sm.w[8 * p + i][d] = mma::exp2_approx(la * kLog2e);
         run += la;
         r[i] = run;
@@ -550,7 +575,8 @@ __global__ void __launch_bounds__(kThreads) scan_f32(Args a) {
       const long long s = t0 + t;
       q_s[t][kk] = qg[s * a.sq[1] + kk];
       k_s[t][kk] = kg[s * a.sk[1] + kk];
-      w_s[t][kk] = expf(fminf(fmaxf(lg[s * a.sl[1] + kk], kLogAMin), 0.f));
+      w_s[t][kk] = expf(a.la_per_head ? lg[s * a.sl[1]]
+                                      : fminf(fmaxf(lg[s * a.sl[1] + kk], kLogAMin), 0.f));
     }
     for (int i = tid; i < n * kVT; i += kThreads) {
       const int t = i / kVT, c = i % kVT;
@@ -609,13 +635,16 @@ cudaError_t launch_bf16(const Args& a, int B, int H, int V, cudaStream_t s) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and y alike; la, u and the
 // states are float32).  strides: 15 element strides, (b, s, head) of q,
 // k, v, la, y in that order; the last dim is unit-stride in all five.
-// u and s0 may be null.  K and V at most 64; for bfloat16 also multiples
-// of 8, with every row of q, k, v, la and y 16-byte aligned.  Returns the
-// CUDA error of the launch (0 on success).
+// la_per_head: 0 for la (B, S, H, K), clamped to [-8, 0]; else la is
+// (B, S, H), one unclamped log-decay a head.  u and s0 may be null.  K
+// and V at most 64; for bfloat16 also multiples of 8, with every row of
+// q, k, v, y (and of a per-dim la) 16-byte aligned.  Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int linear_scan_fwd(const void* q, const void* k, const void* v, const float* la,
                                const float* u, const float* s0, void* y, float* s_out,
                                int dtype, int B, int S, int H, int K, int V,
-                               int include_current, const long long* strides, void* stream) {
+                               int include_current, int la_per_head, const long long* strides,
+                               void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || K <= 0 || V <= 0 || K > kMaxK || V > kMaxK)
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -639,17 +668,23 @@ extern "C" int linear_scan_fwd(const void* q, const void* k, const void* v, cons
   a.K = K;
   a.V = V;
   a.include_current = include_current;
+  a.la_per_head = la_per_head;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const dim3 grid((unsigned)((V + kVT - 1) / kVT), (unsigned)H, (unsigned)B);
     scan_f32<<<grid, kThreads, 0, s>>>(a);
   } else if (dtype == 1) {
     // 16-byte rows: every base 16-byte aligned, every (b, s, head) stride a
-    // whole number of 16 bytes (8 bf16, 4 floats), K and V multiples of 8
+    // whole number of 16 bytes (8 bf16, 4 floats), K and V multiples of 8;
+    // a per-head la is read a float at a time and has no such rows
     bool rows16 = K % 8 == 0 && V % 8 == 0;
     const void* bases[5] = {q, k, v, la, y};
-    for (int i = 0; i < 5; ++i) rows16 = rows16 && reinterpret_cast<uintptr_t>(bases[i]) % 16 == 0;
-    for (int i = 0; i < 15; ++i) rows16 = rows16 && strides[i] % (i >= 9 && i < 12 ? 4 : 8) == 0;
+    for (int i = 0; i < 5; ++i)
+      rows16 = rows16 && (reinterpret_cast<uintptr_t>(bases[i]) % 16 == 0 || (i == 3 && la_per_head));
+    for (int i = 0; i < 15; ++i) {
+      const bool la_stride = i >= 9 && i < 12;
+      rows16 = rows16 && (strides[i] % (la_stride ? 4 : 8) == 0 || (la_stride && la_per_head));
+    }
     if (!rows16) return (int)cudaErrorInvalidValue;
     // a block holds the chunk's scores, which all V columns share; where
     // two blocks per (b, h) still find an SM each, V is split between them

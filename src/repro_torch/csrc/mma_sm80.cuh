@@ -1,6 +1,6 @@
 // Warp-level tensor-core and asynchronous-copy primitives shared by the
 // port's bf16 kernels (flash_attention.cu, linear_scan.cu; the copies,
-// packing and 2^x also flash_attention_bwd.cu): 16-byte
+// packing and 2^x also flash_attention_bwd.cu): 16-byte (and 4-byte)
 // cp.async with zero fill, ldmatrix (plain and transposed),
 // mma.sync m16n8k16 bf16 -> fp32, and the MUFU unit's 2^x.  All of them
 // exist from sm_80 on and run on Hopper (sm_90a) unchanged.
@@ -31,6 +31,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // (src must still be a valid address).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes global -> shared (the L1-allocating .ca form, the only one
+// below 16 bytes); src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
 }
 

@@ -20,7 +20,10 @@ they come out of the attention layer's projections and returns
   before training existed.
 * backward: CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (no
   atomics: dK and dV a key tile, then dQ a query tile) from q, k, v, o,
-  dO and lse, and return gradients in the input dtype.  The route
+  dO and lse, and return gradients in the input dtype.  It takes head
+  dims 32, 64 and 128 (``BWD_HEAD_DIMS``); the forward also takes 112
+  (zamba2_7b's shared attention, served only), which the backward
+  refuses here, before any launch.  The route
   follows the dtype.  bf16 (the ``[train]`` path) runs every product on
   the tensor cores (``wgmma``, one warpgroup a 64-row tile, P and dS
   rounded to bf16 in registers) with ``cp.async`` rings of bf16 tiles,
@@ -59,7 +62,8 @@ launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)   # the forward kernel's (112: zamba2_7b, serving only)
+BWD_HEAD_DIMS = (32, 64, 128)    # the backward kernel's
 BWD_TILE = 64              # queries and keys a tile of the bf16 backward
 BWD_BLOCKS_PER_SM = 2      # its dK/dV blocks resident an SM at hd 128 (255 registers, 100 KB)
 
@@ -96,10 +100,14 @@ def needs_copy(x) -> bool:
     return x.data_ptr() % 16 != 0 or any(st * esize % 16 for st in x.stride()[:3])
 
 
-def _check_launch(q):
+def _check_launch(q, backward: bool = False):
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
     B, S, H, hd = q.shape
+    if backward and hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention backward kernel takes head_dim in {BWD_HEAD_DIMS}, "
+                         f"got {hd}: head_dim {hd} is served (forward) only, its backward "
+                         f"is not written yet (ROADMAP.md §2 item 4b)")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if max(B, H) > 65535:
@@ -143,7 +151,7 @@ def bwd_plan(B, S, H, KV, sms):
 def _launch_bwd(q, k, v, o, do, lse, window):
     """The backward kernels: (dq, dk, dv) in q's dtype."""
     global bwd_launches
-    _check_launch(q)
+    _check_launch(q, backward=True)
     if not q.dtype == o.dtype == do.dtype or lse.dtype != torch.float32:
         raise TypeError(f"flash_attention backward takes q, o, dO of one dtype and fp32 lse, "
                         f"got {q.dtype}, {o.dtype}, {do.dtype}, {lse.dtype}")

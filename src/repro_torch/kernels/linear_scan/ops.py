@@ -4,13 +4,18 @@ Port of ``repro.kernels.linear_scan.ops.recurrence``.
 ``recurrence`` takes q, k, la (B, S, H, K), v (B, S, H, V), the RWKV6
 bonus u (H, K) and an optional fp32 initial state (B, H, K, V), and
 returns y (B, S, H, V) in v's dtype with the fp32 final state, which the
-decode cache needs.  CUDA tensors launch the kernel in
+decode cache needs.  A per-dim la (B, S, H, K) is clamped to
+[LOG_A_MIN, 0] (RWKV6); a per-head la (B, S, H), one log-decay a head
+(Mamba2), is taken as it is, without the clamp, as the reference's
+per-head model path takes it.  CUDA tensors launch the kernel in
 ``csrc/linear_scan.cu``, which reads every input through its strides and
 indexes u by head.  bf16 q/k/v take the tensor-core route, whose 16-byte
 asynchronous copies need every row of q, k, v and la 16-byte aligned and
 K, V multiples of 8: ``kernel_operands`` zero-pads K and V and copies a
 view whose base pointer or (b, s, head) strides do not allow that to a
-contiguous one; the projections of the RWKV6 layer are read in place.
+contiguous one; the projections of the RWKV6 layer are read in place,
+and so are Mamba2's C and B broadcast over the heads (head stride 0) and
+its per-head la, which the kernel reads a float at a time.
 CPU tensors take the plain version in ``ref.py``.  Nothing else falls
 back: a CUDA tensor the kernel does not take raises.
 """
@@ -36,7 +41,7 @@ MAX_DIM = 64   # largest K and V the kernel takes
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.library("linear_scan").linear_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
@@ -57,21 +62,27 @@ def needs_copy(x, rows16: bool) -> bool:
 
 def kernel_operands(q, k, v, la, u=None, initial_state=None):
     """What the kernel reads in place of (q, k, v, la, u, initial_state).
-    On the bf16 route K and V are zero-padded to multiples of 8 (u and the
-    initial state alike): zero q, k and v entries add nothing to y or to
-    the state, whose padded rows and columns stay zero, so the wrapper
-    slices y and the final state back.  Then each of q, k, v, la that
-    ``needs_copy`` is copied to a contiguous tensor."""
+    On the bf16 route K and V are zero-padded to multiples of 8 (u, a
+    per-dim la and the initial state alike): zero q, k and v entries add
+    nothing to y or to the state, whose padded rows and columns stay
+    zero, so the wrapper slices y and the final state back.  Then each of
+    q, k, v and a per-dim la that ``needs_copy`` is copied to a contiguous
+    tensor; a per-head la (B, S, H) is read a float at a time through its
+    strides and never copied."""
     rows16 = v.dtype == torch.bfloat16
+    per_head = la.dim() == 3
     pk, pv = (-q.shape[-1] % 8, -v.shape[-1] % 8) if rows16 else (0, 0)
     if pk or pv:
-        q, k, la = (F.pad(x, (0, pk)) for x in (q, k, la))
+        q, k = F.pad(q, (0, pk)), F.pad(k, (0, pk))
+        la = la if per_head else F.pad(la, (0, pk))
         v = F.pad(v, (0, pv))
         u = None if u is None else F.pad(u, (0, pk))
         if initial_state is not None:
             initial_state = F.pad(initial_state, (0, pv, 0, pk))
-    q, k, v, la = (x.clone(memory_format=torch.contiguous_format) if needs_copy(x, rows16)
-                   else x for x in (q, k, v, la))
+    q, k, v = (x.clone(memory_format=torch.contiguous_format) if needs_copy(x, rows16)
+               else x for x in (q, k, v))
+    if not per_head and needs_copy(la, rows16):
+        la = la.clone(memory_format=torch.contiguous_format)
     if u is not None:
         u = u.contiguous()
     if initial_state is not None:
@@ -102,7 +113,7 @@ def _launch(q, k, v, la, u, include_current, initial_state):
                  None if u is None else u.data_ptr(),
                  None if initial_state is None else initial_state.data_ptr(),
                  y.data_ptr(), state.data_ptr(), _DTYPES[v.dtype], B, S, H, Kk, Vk,
-                 int(include_current), ctypes.addressof(strides),
+                 int(include_current), int(la.dim() == 3), ctypes.addressof(strides),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"linear_scan kernel launch failed: CUDA error {err}")
@@ -113,12 +124,15 @@ def _launch(q, k, v, la, u, include_current, initial_state):
 
 
 def recurrence(q, k, v, la, u=None, *, include_current: bool = True, initial_state=None):
-    """Layer shapes: q, k, la (B,S,H,K); v (B,S,H,V); u (H,K) optional;
+    """Layer shapes: q, k (B,S,H,K); la (B,S,H,K) per dim, clamped, or
+    (B,S,H) per head, unclamped; v (B,S,H,V); u (H,K) optional;
     initial_state (B,H,K,V).  Returns y (B,S,H,V) in v's dtype and the
     fp32 final state (B,H,K,V)."""
-    if q.dim() != 4 or q.shape != k.shape or q.shape != la.shape or v.shape[:3] != q.shape[:3]:
-        raise ValueError(f"need q, k, la (B,S,H,K) and v (B,S,H,V), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(la.shape)}, {tuple(v.shape)}")
+    if (q.dim() != 4 or q.shape != k.shape or la.shape not in (q.shape, q.shape[:3])
+            or v.shape[:3] != q.shape[:3]):
+        raise ValueError(f"need q, k (B,S,H,K), la (B,S,H,K) or (B,S,H) and v (B,S,H,V), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(la.shape)}, "
+                         f"{tuple(v.shape)}")
     B, S, H, K = q.shape
     V = v.shape[-1]
     if u is not None and tuple(u.shape) != (H, K):

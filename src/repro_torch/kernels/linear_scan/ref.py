@@ -6,8 +6,10 @@ recurrence.  It is the path taken on CPU tensors, and what
     y_t = q_t^T S_t                           (include_current=True, Mamba2)
     y_t = q_t^T (S_{t-1} + diag(u) k_t v_t^T)                (RWKV6 bonus)
 
-with ``la`` clipped to [LOG_A_MIN, 0], as ``repro.kernels.linear_scan.ref``
-computes it.  Every exponent is <= 0, so no input overflows it.
+with a per-dim ``la`` (B, S, H, K) clipped to [LOG_A_MIN, 0], as
+``repro.kernels.linear_scan.ref`` computes it, and a per-head ``la``
+(B, S, H) (Mamba2) taken as it is, as the reference's per-head model
+path takes it.  Every exponent is <= 0, so no input overflows it.
 
 ``chunked`` is a plain model of the bf16 kernel's chunked arithmetic
 (``csrc/linear_scan.cu``), for the tests only.
@@ -23,15 +25,18 @@ CHUNK, SUBS = 32, (16, 8)   # the bf16 kernel's chunk and its two levels of sub-
 
 
 def scan(q, k, v, log_a, u=None, *, include_current: bool = True, initial_state=None):
-    """Unclipped sequential recurrence on the layer layout.  q, k, log_a
-    (B,S,H,K); v (B,S,H,V); u (H,K) or (B,H,K); initial_state (B,H,K,V).
-    Returns y (B,S,H,V) in v's dtype and the final fp32 state (B,H,K,V)."""
+    """Unclipped sequential recurrence on the layer layout.  q, k (B,S,H,K);
+    log_a (B,S,H,K), or (B,S,H) shared by a head's K rows; v (B,S,H,V);
+    u (H,K) or (B,H,K); initial_state (B,H,K,V).  Returns y (B,S,H,V) in
+    v's dtype and the final fp32 state (B,H,K,V)."""
     B, S, H, K = q.shape
     V = v.shape[-1]
     f32, out_dtype = torch.float32, v.dtype
     state = (initial_state.to(f32) if initial_state is not None
              else torch.zeros((B, H, K, V), dtype=f32, device=q.device))
     q, k, v, w = q.to(f32), k.to(f32), v.to(f32), torch.exp(log_a.to(f32))
+    if w.dim() == 3:
+        w = w[..., None]                                         # (B, S, H, 1)
     if u is not None:
         u = u.to(f32)
         u = (u if u.dim() == 3 else u[None])[..., None]          # (B|1, H, K, 1)
@@ -50,9 +55,12 @@ def scan(q, k, v, log_a, u=None, *, include_current: bool = True, initial_state=
 
 
 def recurrence(q, k, v, la, u=None, *, include_current: bool = True, initial_state=None):
-    """The kernel's function on the layer layout: ``scan`` with ``la``
-    clipped to [LOG_A_MIN, 0].  Returns (y in v's dtype, fp32 final state)."""
-    la = torch.clamp(la.to(torch.float32), LOG_A_MIN, 0.0)
+    """The kernel's function on the layer layout: ``scan`` with a per-dim
+    ``la`` (B,S,H,K) clipped to [LOG_A_MIN, 0], or a per-head ``la``
+    (B,S,H) as it is.  Returns (y in v's dtype, fp32 final state)."""
+    la = la.to(torch.float32)
+    if la.dim() == 4:
+        la = torch.clamp(la, LOG_A_MIN, 0.0)
     return scan(q, k, v, la, u, include_current=include_current, initial_state=initial_state)
 
 
@@ -67,8 +75,9 @@ def linear_scan(q, k, v, la, u=None, *, include_current: bool = True):
 def chunked(q, k, v, la, u=None, *, include_current: bool = True, initial_state=None,
             exponents=None):
     """The bf16 kernel's chunked form in fp32, on the layer layout (as
-    ``recurrence``).  With cum the chunk's cumulative clamped log-decay
-    and x = cum (Mamba2) or cum - la (RWKV6, taken as cum one step back,
+    ``recurrence``: a per-head la is shared by the K rows, unclamped).
+    With cum the chunk's cumulative (per-dim clamped) log-decay and x =
+    cum (Mamba2) or cum - la (RWKV6, taken as cum one step back,
     0 at the chunk's first step, so that x_t - cum_s <= 0 holds exactly
     for s < t, as in the kernel), a chunk's y is the readout
     (q exp(x)) S_in plus the scores A times v, and the state becomes
@@ -91,7 +100,9 @@ def chunked(q, k, v, la, u=None, *, include_current: bool = True, initial_state=
         return F.pad(x.to(f32), (0, 0, 0, 0, 0, pad))
 
     q, k, v = padded(q), padded(k), padded(v)
-    la = padded(torch.clamp(la.to(f32), LOG_A_MIN, 0.0))
+    la = la.to(f32)
+    la = la[..., None].expand(B, S, H, K) if la.dim() == 3 else torch.clamp(la, LOG_A_MIN, 0.0)
+    la = padded(la)
     state = (initial_state.to(f32) if initial_state is not None
              else torch.zeros((B, H, K, V), dtype=f32, device=q.device))
     uu = u.to(f32) if u is not None else torch.ones((H, K), dtype=f32, device=q.device)

@@ -4,9 +4,11 @@ of ``repro.launch.serve``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --smoke \\
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-The device defaults to ``cuda`` and raises without a card.  On the card
-the prompt's attention runs through the flash_attention kernel and
-RWKV6's time-mix through the linear_scan kernel; decode is plain
+(``--arch`` also starcoder2_3b, minicpm_2b and zamba2_7b.)  The device
+defaults to ``cuda`` and raises without a card.  On the card the
+prompt's attention (zamba2_7b's shared block at head_dim 112 among it)
+runs through the flash_attention kernel, and RWKV6's time-mix and
+Mamba2's per-head scan through the linear_scan kernel; decode is plain
 PyTorch, as in the reference.  Parameters are drawn from an explicit
 ``torch.Generator`` in ``param_dtype`` and cast to the compute dtype
 once, after which the fp32 draws are dropped.

@@ -1,14 +1,18 @@
 """Decoder stack for training and serving: dense GQA (starcoder2 and
-minicpm style) and RWKV6.  Port of the ``("attn", False)`` and
-``("rwkv6", False)`` layer families of ``repro.models.decoder``.
+minicpm style), RWKV6, and the Mamba2 hybrid with one shared attention
+block (Zamba2).  Port of the ``("attn", False)``, ``("rwkv6", False)``,
+``("mamba2", False)`` and ``("shared_attn", False)`` layer families of
+``repro.models.decoder``.
 
 Layers are grouped into maximal runs of identical block type with
 stacked parameters, as in the reference, so a reference tree carries
 over leaf for leaf (``repro_torch.weights.from_jax_params``); where the
 reference runs ``lax.scan`` over a group, the port loops over the layer
-index.  MoE, MLA, Mamba2, shared attention, encoder-decoder, modality
-frontends, parallel blocks and qk-norm raise ``NotImplementedError``
-(ROADMAP.md §1 item 11).
+index.  A ``shared_attn`` layer holds its own norms and MLP and reads the
+one attention block at the top level, ``params["shared_attn"]``, which
+every invocation shares; each invocation keeps its own KV cache.  MoE,
+MLA, encoder-decoder, modality frontends, parallel blocks and qk-norm
+raise ``NotImplementedError`` (ROADMAP.md §1 item 11).
 
 Public API (plain functions of (cfg, params, ...)):
   init_params(cfg, generator)
@@ -19,12 +23,13 @@ Public API (plain functions of (cfg, params, ...)):
   decode_step(cfg, params, cache, token, pos)    -> logits, cache
 
 ``forward`` and ``loss_fn`` are differentiable in the parameters (the
-attention layer's kernels have a backward; RWKV6 trains on the CPU only,
-``models/recurrence.py``).  ``remat`` recomputes each layer's forward in
-the backward (``torch.utils.checkpoint``, non-reentrant) instead of
-keeping its activations, as the reference's ``jax.checkpoint`` of the
-scanned layer does; it acts only while grad is enabled and changes no
-number.  The reference's ``q_chunk`` and ``moe_dispatch`` have no
+attention layer's kernels have a backward; RWKV6 and Mamba2 train on the
+CPU only, ``models/recurrence.py``, and so does the shared attention at
+zamba2's head dim of 112, which the backward kernel does not take).
+``remat`` recomputes each layer's forward in the backward
+(``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+activations, as the reference's ``jax.checkpoint`` of the scanned layer
+does; it acts only while grad is enabled and changes no number.  The reference's ``q_chunk`` and ``moe_dispatch`` have no
 counterpart (the attention kernels never materialise the scores; MoE is
 not ported).
 """
@@ -41,7 +46,7 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        init_unembed, unembed)
 
-PORTED_TAGS = (("attn", False), ("rwkv6", False))
+PORTED_TAGS = (("attn", False), ("rwkv6", False), ("mamba2", False), ("shared_attn", False))
 
 
 # ------------------------------------------------------------- grouping ---
@@ -78,11 +83,15 @@ def check_supported(cfg) -> None:
 def _init_layer(fac, cfg, tag):
     kind, _ = tag
     p = {"norm1": init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)}
+    if kind == "mamba2":
+        p["mamba"] = rec.init_mamba2(fac, cfg)
+        return p
     if kind == "rwkv6":
         p["tm"] = rec.init_rwkv6(fac, cfg)
         p["norm2"] = init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)
         return p
-    p["attn"] = attn.init_attention(fac, cfg)
+    if kind == "attn":
+        p["attn"] = attn.init_attention(fac, cfg)
     p["norm2"] = init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)
     p["mlp"] = init_mlp(fac, cfg.d_model, cfg.d_ff, cfg.activation, cfg.use_bias)
     return p
@@ -105,6 +114,8 @@ def init_params(cfg, generator: torch.Generator):
     }
     if not cfg.tie_embeddings:
         params["unembed"] = init_unembed(fac, cfg.d_model, cfg.padded_vocab())
+    if any(k == "shared_attn" for k in cfg.pattern()):
+        params["shared_attn"] = attn.init_attention(fac, cfg)
     return params
 
 
@@ -149,12 +160,17 @@ def _logits(cfg, params, x):
     return _mask_padded_vocab(cfg, logits)
 
 
-def _apply_layer(cfg, lp, x, positions, tag, *, window=None, cache_len=None,
+def _apply_layer(cfg, lp, shared, x, positions, tag, *, window=None, cache_len=None,
                  cache_dtype=torch.bfloat16):
-    """One layer forward (training/prefill).  With ``cache_len`` it also
-    returns the layer's filled decode cache, else None."""
+    """One layer forward (training/prefill); ``shared`` is the top-level
+    attention block a ``shared_attn`` layer reads.  With ``cache_len`` it
+    also returns the layer's filled decode cache, else None."""
     kind, _ = tag
     rs = _residual_scale(cfg)
+    if kind == "mamba2":
+        h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+        y, (conv, ssm) = rec.mamba2_forward(lp["mamba"], cfg, h)
+        return x + y * rs, {"conv": conv, "ssm": ssm}
     if kind == "rwkv6":
         h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
         y, (sh, wkv) = rec.rwkv6_time_mix(lp["tm"], cfg, h)
@@ -164,8 +180,8 @@ def _apply_layer(cfg, lp, x, positions, tag, *, window=None, cache_len=None,
         return x + y * rs, {"tm_shift": sh, "wkv": wkv, "cm_shift": cm_sh}
 
     h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
-    a, (k, v) = attn.attention_forward(lp["attn"], cfg, h, positions, window=window,
-                                       return_kv=True)
+    ap = shared if kind == "shared_attn" else lp["attn"]
+    a, (k, v) = attn.attention_forward(ap, cfg, h, positions, window=window, return_kv=True)
     lcache = None
     if cache_len is not None:
         w = cfg.serve_window
@@ -178,8 +194,8 @@ def _apply_layer(cfg, lp, x, positions, tag, *, window=None, cache_len=None,
     return x + y * rs, lcache
 
 
-def _train_layer(cfg, tag, lp, x, positions):
-    return _apply_layer(cfg, lp, x, positions, tag, window=cfg.sliding_window)[0]
+def _train_layer(cfg, tag, lp, shared, x, positions):
+    return _apply_layer(cfg, lp, shared, x, positions, tag, window=cfg.sliding_window)[0]
 
 
 def forward(cfg, params, tokens, *, remat: bool = True):
@@ -190,13 +206,14 @@ def forward(cfg, params, tokens, *, remat: bool = True):
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     remat = remat and torch.is_grad_enabled()
+    shared = params.get("shared_attn")
     for gp, (tag, count) in zip(params["groups"], layer_groups(cfg)):
         for i in range(count):
             if remat:
-                x = checkpoint(_train_layer, cfg, tag, _layer(gp, i), x, positions,
+                x = checkpoint(_train_layer, cfg, tag, _layer(gp, i), shared, x, positions,
                                use_reentrant=False)
             else:
-                x = _train_layer(cfg, tag, _layer(gp, i), x, positions)
+                x = _train_layer(cfg, tag, _layer(gp, i), shared, x, positions)
     return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -244,11 +261,12 @@ def prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat16):
     x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    shared = params.get("shared_attn")
     caches = []
     for gp, (tag, count) in zip(params["groups"], layer_groups(cfg)):
         layer_caches = []
         for i in range(count):
-            x, lc = _apply_layer(cfg, _layer(gp, i), x, positions, tag,
+            x, lc = _apply_layer(cfg, _layer(gp, i), shared, x, positions, tag,
                                  window=cfg.sliding_window, cache_len=cache_len,
                                  cache_dtype=cache_dtype)
             layer_caches.append(lc)
@@ -261,15 +279,20 @@ def prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat16):
 def init_cache(cfg, params, batch: int, cache_len: int, *, dtype=torch.bfloat16,
                device=None):
     """Build the per-group stacked cache tree (on the parameters' device
-    unless ``device`` is given)."""
+    unless ``device`` is given).  A Mamba2 layer's conv state is fp32
+    whatever ``dtype`` is, as in the reference (its prefill returns it in
+    the compute dtype, and so does its first decode step)."""
     check_supported(cfg)
     device = device if device is not None else params["embed"]["table"].device
     window = cfg.serve_window
     alen = min(cache_len, window) if window else cache_len
     caches = []
     for (kind, _), count in layer_groups(cfg):
-        if kind == "attn":
+        if kind in ("attn", "shared_attn"):
             one = attn.init_attn_cache(cfg, batch, alen, dtype, device=device)
+        elif kind == "mamba2":
+            conv, ssm = rec.init_mamba2_state(cfg, batch, device=device)
+            one = {"conv": conv, "ssm": ssm}
         else:
             s = rec.init_rwkv6_state(cfg, batch, device=device)
             one = {"tm_shift": s[0], "wkv": s[1], "cm_shift": s[2]}
@@ -277,9 +300,14 @@ def init_cache(cfg, params, batch: int, cache_len: int, *, dtype=torch.bfloat16,
     return {"groups": caches}
 
 
-def _decode_layer(cfg, lp, x, lcache, pos, tag):
+def _decode_layer(cfg, lp, shared, x, lcache, pos, tag):
     kind, _ = tag
     rs = _residual_scale(cfg)
+    if kind == "mamba2":
+        h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+        y, (cv, st) = rec.mamba2_forward(lp["mamba"], cfg, h, conv_state=lcache["conv"],
+                                         ssm_state=lcache["ssm"])
+        return x + y * rs, {"conv": cv, "ssm": st}
     if kind == "rwkv6":
         h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
         y, (sh, wkv) = rec.rwkv6_time_mix(lp["tm"], cfg, h, shift_state=lcache["tm_shift"],
@@ -290,8 +318,8 @@ def _decode_layer(cfg, lp, x, lcache, pos, tag):
         return x + y * rs, {"tm_shift": sh, "wkv": wkv, "cm_shift": cm_sh}
 
     h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
-    a, new_cache = attn.attention_decode(lp["attn"], cfg, h, lcache, pos,
-                                         window=cfg.serve_window)
+    ap = shared if kind == "shared_attn" else lp["attn"]
+    a, new_cache = attn.attention_decode(ap, cfg, h, lcache, pos, window=cfg.serve_window)
     x = x + a * rs
     h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
     y = apply_mlp(lp["mlp"], h, cfg.activation)
@@ -304,12 +332,13 @@ def decode_step(cfg, params, cache, token, pos: int):
     check_supported(cfg)
     params = cast_params(cfg, params)
     x = _embed(cfg, params, token)
+    shared = params.get("shared_attn")
     new_groups = []
     for gi, (gp, (tag, count)) in enumerate(zip(params["groups"], layer_groups(cfg))):
         gc = cache["groups"][gi]
         layer_caches = []
         for i in range(count):
-            x, nc = _decode_layer(cfg, _layer(gp, i), x, _layer(gc, i), pos, tag)
+            x, nc = _decode_layer(cfg, _layer(gp, i), shared, x, _layer(gc, i), pos, tag)
             layer_caches.append(nc)
         new_groups.append(_stack_caches(layer_caches))
     new_cache = dict(cache)

@@ -1,22 +1,24 @@
-"""Linear-recurrence blocks: RWKV6 (Finch).  Port of the RWKV6 part of
+"""Linear-recurrence blocks: Mamba2 (SSD) and RWKV6 (Finch).  Port of
 ``repro.models.recurrence``.
 
-RWKV6's time-mix is an instance of the gated linear recurrence
+Both are instances of the gated linear recurrence
 
     S_t = diag(exp(log_a_t)) @ S_{t-1} + k_t v_t^T          S: (K, V)
     y_t = q_t^T S_t                      (include_current=True, Mamba2)
     y_t = q_t^T (S_{t-1} + diag(u) k_t v_t^T)               (RWKV6 bonus)
 
-with a per-dim decay.  The prompt runs through the linear_scan kernel's
-wrapper (``linear_recurrence``): on CUDA the hand-written kernel, which
-steps through time exactly, on the CPU its plain sequential version.
-The kernel has no backward yet, so on CUDA ``linear_recurrence`` raises
+RWKV6 with a per-dim decay, clamped to [LOG_A_MIN, 0] in the prompt
+path; Mamba2 with one decay a head, unclamped, as in the reference.  The
+prompt runs through the linear_scan kernel's wrapper
+(``linear_recurrence``): on CUDA the hand-written kernel, which steps
+through time exactly, on the CPU its plain sequential version.  The
+kernel has no backward yet, so on CUDA ``linear_recurrence`` raises
 ``NotImplementedError`` when grad is enabled and an input needs it,
-rather than train RWKV6 without the scan's gradient (ROADMAP.md §2 item
-4); on the CPU autograd runs through the plain version.
-The reference's chunked algorithm is a TPU decomposition of the same
-function and is not carried over.  Decode is one plain state update.
-Mamba2 and per-head decay wait (ROADMAP.md §1 item 11).
+rather than train RWKV6 or Mamba2 without the scan's gradient
+(ROADMAP.md §2 item 4b); on the CPU autograd runs through the plain
+version.  The reference's chunked algorithm is a TPU decomposition of
+the same function and is not carried over.  Decode is one plain state
+update.
 """
 from __future__ import annotations
 
@@ -43,20 +45,26 @@ def linear_recurrence_scan(q, k, v, log_a, u=None, include_current=True,
 
 def linear_recurrence(q, k, v, log_a, u=None, include_current=True,
                       initial_state=None, decay_per: str = "dim"):
-    """The reference's prompt recurrence: log-decay clipped to
-    [LOG_A_MIN, 0] per dim, through the linear_scan kernel's wrapper.
-    The reference's ``chunk`` (the size of its decomposition) has no
-    counterpart: the function does not depend on it, and the kernel
-    stages its own.  Returns y (B,S,H,V) in v's dtype and the fp32 final
-    state (B,H,K,V)."""
-    if decay_per != "dim":
-        raise NotImplementedError(f"decay_per={decay_per!r} (Mamba2) is not ported to "
-                                  f"repro_torch yet (ROADMAP.md §1 item 11)")
+    """The reference's prompt recurrence, through the linear_scan kernel's
+    wrapper.  ``decay_per="dim"`` (RWKV6): log_a (B,S,H,K), clipped to
+    [LOG_A_MIN, 0] per dim.  ``decay_per="head"`` (Mamba2): log_a (B,S,H),
+    one decay a head, unclipped.  The reference's ``chunk`` (the size of
+    its decomposition) has no counterpart: the function does not depend
+    on it, and the kernel stages its own.  Returns y (B,S,H,V) in v's
+    dtype and the fp32 final state (B,H,K,V)."""
+    if decay_per not in ("dim", "head"):
+        raise ValueError(f"decay_per must be 'dim' or 'head', got {decay_per!r}")
+    want = q.shape if decay_per == "dim" else q.shape[:3]
+    if log_a.shape != want:
+        raise ValueError(f"decay_per={decay_per!r} takes log_a of shape {tuple(want)}, got "
+                         f"{tuple(log_a.shape)}")
     if (q.device.type == "cuda" and torch.is_grad_enabled()
             and any(t is not None and t.requires_grad for t in (q, k, v, log_a, u))):
         raise NotImplementedError("training through linear_recurrence on CUDA needs a "
                                   "backward of the linear_scan kernel, not written yet "
-                                  "(ROADMAP.md §2 item 4)")
+                                  "(ROADMAP.md §2 item 4b)")
+    if decay_per == "head":
+        log_a = log_a.float()
     return scan_ops.recurrence(q, k, v, log_a, u, include_current=include_current,
                                initial_state=initial_state)
 
@@ -75,6 +83,97 @@ def recurrence_decode_step(state, qt, kt, vt, la_t, u=None, include_current=True
         y = torch.einsum("bhk,bhkv->bhv", qt, att)
         new = torch.exp(la_t)[..., None] * state + kv
     return y.to(out_dtype), new
+
+
+# ================================================================ Mamba2 ===
+
+def init_mamba2(fac: ParamFactory, cfg):
+    d, s = cfg.d_model, cfg.ssm
+    d_in = s.expand * d
+    nheads = d_in // s.head_dim
+    conv_dim = d_in + 2 * s.state_dim
+    return {
+        "in_proj": fac.param((d, 2 * d_in + 2 * s.state_dim + nheads), ("embed", "mlp")),
+        "conv_w": fac.param((s.conv_width, conv_dim), (None, "mlp")),
+        "conv_b": fac.param((conv_dim,), ("mlp",), init="zeros"),
+        "dt_bias": fac.param((nheads,), (None,), init="zeros"),
+        "A_log": fac.param((nheads,), (None,), init="constant", scale=0.0),
+        "D": fac.param((nheads,), (None,), init="ones"),
+        "norm_scale": fac.param((d_in,), ("mlp",), init="ones"),
+        "out_proj": fac.param((d_in, d), ("mlp", "embed")),
+    }
+
+
+def _mamba_split(p, cfg, x):
+    d, s = cfg.d_model, cfg.ssm
+    d_in = s.expand * d
+    nheads = d_in // s.head_dim
+    zxbcdt = x @ p["in_proj"]
+    z, xin, Bc, Cc, dt = torch.split(
+        zxbcdt, [d_in, d_in, s.state_dim, s.state_dim, nheads], dim=-1)
+    return z, xin, Bc, Cc, dt, d_in, nheads
+
+
+def _causal_conv(xs, w, b, conv_state=None):
+    """Depthwise causal conv. xs (B,S,C); w (W,C). Returns y, new_state
+    (B,W-1,C) in xs's dtype."""
+    W = w.shape[0]
+    if conv_state is None:
+        pad = torch.zeros((xs.shape[0], W - 1, xs.shape[2]), dtype=xs.dtype, device=xs.device)
+    else:
+        pad = conv_state.to(xs.dtype)
+    xp = torch.cat([pad, xs], dim=1)
+    y = sum(xp[:, i:i + xs.shape[1]] * w[i] for i in range(W)) + b
+    new_state = xp[:, xp.shape[1] - (W - 1):]
+    return F.silu(y), new_state
+
+
+def mamba2_forward(p, cfg, x, conv_state=None, ssm_state=None):
+    """x (B,S,d) -> (y, (conv_state, ssm_state)).  The prompt's scan runs
+    through ``linear_recurrence`` with per-head decay (the linear_scan
+    kernel on CUDA), q and k being C and B broadcast over the heads
+    without a copy; S == 1 with a state is one plain decode step.  The
+    reference's ``chunk`` has no counterpart (``linear_recurrence``)."""
+    B, S, _ = x.shape
+    s = cfg.ssm
+    z, xin, Bc, Cc, dt, d_in, nheads = _mamba_split(p, cfg, x)
+    conv_in = torch.cat([xin, Bc, Cc], dim=-1)
+    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_state)
+    xin, Bc, Cc = torch.split(conv_out, [d_in, s.state_dim, s.state_dim], dim=-1)
+
+    dt = F.softplus(dt.float() + p["dt_bias"])                        # (B,S,H)
+    log_a = -torch.exp(p["A_log"].float()) * dt                       # (B,S,H) <= 0
+    xh = xin.reshape(B, S, nheads, s.head_dim)
+    v = xh * dt[..., None].to(xh.dtype)                               # dt * x
+    k = Bc[:, :, None, :].expand(B, S, nheads, s.state_dim)
+    q = Cc[:, :, None, :].expand(B, S, nheads, s.state_dim)
+
+    if S == 1 and ssm_state is not None:
+        la0 = log_a[:, 0][..., None].expand(k[:, 0].shape)           # (B,H)->(B,H,K)
+        y, new_state = recurrence_decode_step(
+            ssm_state, q[:, 0], k[:, 0], v[:, 0], la0, include_current=True)
+        y = y[:, None]
+    else:
+        y, new_state = linear_recurrence(
+            q, k, v, log_a, include_current=True, initial_state=ssm_state, decay_per="head")
+    y = y + xh * p["D"][None, None, :, None]
+    y = y.reshape(B, S, d_in)
+    # gated RMSNorm (Mamba2): norm(y * silu(z))
+    y = y * F.silu(z)
+    y32 = y.float()
+    var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
+    y = (y32 * torch.rsqrt(var + 1e-5) * p["norm_scale"]).to(x.dtype)
+    return y @ p["out_proj"], (new_conv, new_state)
+
+
+def init_mamba2_state(cfg, batch: int, dtype=torch.float32, device="cpu"):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    nheads = d_in // s.head_dim
+    conv_dim = d_in + 2 * s.state_dim
+    return (torch.zeros((batch, s.conv_width - 1, conv_dim), dtype=dtype, device=device),
+            torch.zeros((batch, nheads, s.state_dim, s.head_dim), dtype=torch.float32,
+                        device=device))
 
 
 # ================================================================ RWKV6 ===

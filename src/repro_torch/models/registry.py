@@ -4,8 +4,9 @@
 ``ARCH_IDS`` lists every architecture of the reference's zoo; the port
 has the ones in ``PORTED`` (``repro_torch/configs/<id>.py``): minicpm_2b
 trains and serves (dense MHA with muP-style scales and tied
-embeddings), starcoder2_3b trains and serves, rwkv6_3b serves (and
-trains on the CPU only, until the linear_scan kernel has a backward).
+embeddings), starcoder2_3b trains and serves, rwkv6_3b and zamba2_7b
+(Mamba2 with a shared attention block) serve (and train on the CPU
+only, until the linear_scan kernel has a backward).
 The others raise ``NotImplementedError``: ROADMAP.md §1 item 11 queues
 them.
 """
@@ -25,7 +26,7 @@ ARCH_IDS = (
     "rwkv6_3b",
     "whisper_small",
 )
-PORTED = ("minicpm_2b", "starcoder2_3b", "rwkv6_3b")
+PORTED = ("minicpm_2b", "starcoder2_3b", "rwkv6_3b", "zamba2_7b")
 
 
 def normalize(arch: str) -> str:

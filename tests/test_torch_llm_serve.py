@@ -291,9 +291,18 @@ class TestRWKV6:
         scaled_close(tl_, jl_, 3e-2, "bf16 prefill logits")
 
     def test_mamba_decay_raises(self):
-        x = torch.zeros(1, 4, 2, 8)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            trec.linear_recurrence(x, x, x, x, decay_per="head")
+        """Per-head decay (Mamba2) no longer raises: it is held against the
+        reference's chunked per-head path, unclamped (log-decays down to
+        -12, below the per-dim clamp of -8)."""
+        rs = np.random.RandomState(35)
+        q, k, v = (rs.randn(1, 9, 2, 8).astype(np.float32) for _ in range(3))
+        la = (-12.0 * rs.rand(1, 9, 2)).astype(np.float32)
+        got, gs = trec.linear_recurrence(*(torch.from_numpy(x) for x in (q, k, v, la)),
+                                         decay_per="head")
+        want, ws = jrec.linear_recurrence(*(jnp.asarray(x) for x in (q, k, v, la)), chunk=4,
+                                          decay_per="head")
+        scaled_close(got, want, 1e-4)
+        scaled_close(gs, ws, 1e-4)
 
     def test_scan_reference_is_unclamped(self):
         """linear_recurrence_scan is the exact oracle, without the clamp."""
@@ -455,11 +464,12 @@ def assert_same_config(t, j):
 
 
 def test_registry_serves_the_ported_archs_only():
-    for arch in ARCHS:
+    assert set(registry.PORTED) == set(ARCHS) | {"zamba2_7b"}
+    for arch in registry.PORTED:
         assert_same_config(registry.get_config(arch), jget_config(arch))
         assert_same_config(registry.get_smoke_config(arch.replace("_", "-")),
                            jget_smoke_config(arch))
-    for arch in set(registry.ARCH_IDS) - set(ARCHS):
+    for arch in set(registry.ARCH_IDS) - set(registry.PORTED):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             registry.get_config(arch)
     with pytest.raises(ValueError):

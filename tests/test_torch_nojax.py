@@ -55,6 +55,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.launch.serve, repro_torch.models.decoder\n"
         "from repro_torch.models.registry import get_smoke_config\n"
         "assert get_smoke_config('rwkv6_3b').name == 'rwkv6_3b_smoke'\n"
+        "assert get_smoke_config('zamba2_7b').name == 'zamba2_7b_smoke'\n"
         "import repro_torch.algorithms.builtin, repro_torch.compress\n"
         "from repro_torch.core.runtimes import run_event_driven, run_round_based\n"
         "import repro_torch.core.runtimes.sync, repro_torch.core.scheduler\n"
