@@ -49,16 +49,18 @@ drive the port's main paths through their public entry points.
    sequential bridge (vafl, afl, fedasync) bit-equal to ``run(mode=
    "event")`` with the same kernel launches; thread workers (vafl, afl:
    events/s, the card's busy share, byte ledgers reconciled, one encode
-   an accepted upload); a bridge checkpoint resume; two tenants from one
+   an accepted upload); a bridge checkpoint resume (2 rounds, from a
+   checkpoint past round 1's end); two tenants from one
    ``MultiTenantServer``; then 7 threads x 20 concurrent encodes, each
    bit-equal to the plain route of its input.  The event runs the
    bridge is held against run before the phase's launch counts are set
    to 0, so ``fl_serve_launches`` counts served runs alone.
 8. ``[fl-wire]``: the same federation served over the wire and its
-   faults, 2 rounds a run: the bridge over TCP (``transport="socket"``,
-   vafl and afl) bit-equal to ``run(mode="event")`` with the same
-   launches; thread workers over ``socket`` (vafl: events/s, busy share,
-   ledgers); seven ``spawn``ed process workers computing on the card
+   faults, 1 round a run (the socket threads and the chaos soak 2): the
+   bridge over TCP (``transport="socket"``, vafl and afl) bit-equal to
+   ``run(mode="event")`` with the same launches; thread workers over
+   ``socket`` (vafl: events/s, busy share, ledgers; each worker's second
+   value reads its first gradient); seven ``spawn``ed process workers computing on the card
    over ``socket`` (afl), each child counting its own encode launches
    and sending them back on a queue (they sum to the accepted uploads;
    ``fl_wire_child_launches``), the card's busy share from
@@ -85,12 +87,18 @@ drive the port's main paths through their public entry points.
    ranks (gloo, CUDA tensors) on the reference test's inputs, and the
    federated LM example, afl against vafl.
 11. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b,
-   rwkv6_3b and zamba2_7b at their full published configurations
-   (random weights from a seed): 4 prompts of 2048 tokens, 32 greedy
-   tokens each (kernels flash_attention and linear_scan in the prefill:
-   one a layer, and for zamba2_7b one linear_scan a Mamba2 layer, 68,
-   and one flash_attention a shared-attention invocation, 13), then a
-   prefill of 128 tokens held against 128 stepwise decode steps.
+   rwkv6_3b, zamba2_7b, granite_moe_3b_a800m and qwen3_moe_30b_a3b at
+   their full published configurations (random weights from a seed,
+   each leaf cast as it is drawn: qwen3's 30.5 B parameters are 61 GB in
+   bf16): 4 prompts of 2048 tokens, 32 greedy tokens each (kernels
+   flash_attention and linear_scan in the prefill: one a layer, 32 for
+   granite and 48 for qwen3, and for zamba2_7b one linear_scan a Mamba2
+   layer, 68, and one flash_attention a shared-attention invocation,
+   13), then a prefill of 128 tokens held against 128 stepwise decode
+   steps; for the MoE models the gate holds on 2 x 8 tokens (one group
+   at full capacity) and the 128-token reading, whose prefill drops
+   (token, choice) pairs beyond capacity, is printed with its drop count
+   beside the serve prefill's drops and expert loads.
 
 Run it from the root of a checkout:
 
@@ -155,13 +163,17 @@ TQ_OPS_PER_ELEM = 24             # 10 hash + 14 float/convert/select ops (csrc/t
 # starcoder2_3b's prefill in serve(batch=4, prompt_len=2048), window 4096;
 # then a ragged S, a window shorter than S, fp32, and a large shape; then
 # zamba2_7b's shared attention in the same serve call (head_dim 112, no
-# GQA, causal), a ragged S, a window and fp32 at 112
+# GQA, causal), a ragged S, a window and fp32 at 112; then the MoE models'
+# prefills in the same serve call, causal: granite_moe_3b_a800m's GQA
+# 24/8 at 64 and qwen3_moe_30b_a3b's GQA 32/4 at 128
 FA_CASES = [(4, 2048, 24, 2, 128, 4096, "bfloat16"), (4, 1000, 24, 2, 128, 4096, "bfloat16"),
             (4, 2048, 24, 2, 128, 256, "bfloat16"), (2, 1024, 24, 2, 128, None, "float32"),
             (4, 4096, 24, 2, 128, 4096, "bfloat16"),
             (4, 2048, 32, 32, 112, None, "bfloat16"), (4, 1000, 32, 32, 112, None, "bfloat16"),
-            (4, 2048, 32, 32, 112, 256, "bfloat16"), (2, 1024, 32, 32, 112, None, "float32")]
-FA_ZAMBA2 = FA_CASES[5]
+            (4, 2048, 32, 32, 112, 256, "bfloat16"), (2, 1024, 32, 32, 112, None, "float32"),
+            (4, 2048, 24, 8, 64, None, "bfloat16"), (4, 2048, 32, 4, 128, None, "bfloat16")]
+FA_MODEL = {"zamba2_7b": FA_CASES[5], "granite_moe_3b_a800m": FA_CASES[9],
+            "qwen3_moe_30b_a3b": FA_CASES[10]}
 FA_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # linear_scan cases: (B, S, H, K, V, form, la, initial state); the first
 # is rwkv6_3b's prefill in serve(batch=4, prompt_len=2048): bf16 r/k/v,
@@ -225,6 +237,9 @@ TC_FUNCS = {"flash_attention": ("flash_fwd_bf16",), "linear_scan": ("scan_bf16",
             "flash_attention_bwd": ("dkdv_bf16", "dq_bf16")}
 SERVE = dict(batch=4, prompt_len=2048, gen=32)
 CONSISTENCY_LEN = 128            # prefill vs stepwise decode at full width
+MOE_GATE_LEN = 8                 # an MoE model's gated check: 2 x 8 tokens, nothing drops
+MOE_FP32_LAYERS = 4              # qwen3_moe's fp32 check: its first 4 layers, 11.6 GiB in fp32
+MOE_BF16_LAYERS = 1              # an MoE model's bf16 gate: its first layer (_moe_bf16)
 # zamba2_7b's fp32 prefill-vs-stepwise gap is also read at (depth, the
 # decode KV cache's dtype): the first 12 layers and the full 81, with the
 # serving default's bf16 cache and with an fp32 one
@@ -749,25 +764,73 @@ def _reset_launches():
     return lambda: {name: getattr(m, attr) for name, (m, attr) in counters.items()}
 
 
-def _prefill_vs_stepwise(cfg, params, cache_dtype: str = "bfloat16") -> tuple:
-    """Last-position logits of one prefill of CONSISTENCY_LEN tokens (the
+def _prefill_vs_stepwise(cfg, params, cache_dtype: str = "bfloat16",
+                         length: int = CONSISTENCY_LEN) -> tuple:
+    """Last-position logits of one prefill of ``length`` tokens (the
     kernel path) against as many decode_step calls (plain PyTorch) over a
-    KV cache of ``cache_dtype``: (max abs difference, scale = max
-    |stepwise logits|)."""
-    import numpy as np
+    KV cache of ``cache_dtype``, batch 2: (max abs difference, scale =
+    max |stepwise logits|)."""
     import torch
     from repro_torch.models import decoder
-    L = CONSISTENCY_LEN
-    prompt = torch.from_numpy(np.random.RandomState(1).randint(
-        0, cfg.vocab_size, size=(2, L))).to("cuda")
+    prompt = _check_prompt(cfg, length)
     with torch.no_grad():
-        lp, _, _ = decoder.prefill(cfg, params, prompt, L)
-        cache = decoder.init_cache(cfg, params, 2, L, dtype=getattr(torch, cache_dtype))
-        for t in range(L):
+        lp, _, _ = decoder.prefill(cfg, params, prompt, length)
+        cache = decoder.init_cache(cfg, params, 2, length, dtype=getattr(torch, cache_dtype))
+        for t in range(length):
             ls, cache = decoder.decode_step(cfg, params, cache, prompt[:, t:t + 1], t)
     if not (bool(torch.isfinite(lp).all()) and bool(torch.isfinite(ls).all())):
         fail(f"{cfg.name}: non-finite logits in prefill or decode_step")
-    return float((lp.float() - ls.float()).abs().max()), float(ls.float().abs().max())
+    lp, ls = (x[..., :cfg.vocab_size].float() for x in (lp, ls))   # not the -1e30 padding
+    return float((lp - ls).abs().max()), float(ls.abs().max())
+
+
+def _check_prompt(cfg, length: int):
+    """The prefill-vs-stepwise check's prompt: 2 x ``length`` tokens."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, size=(2, CONSISTENCY_LEN))[:, :length]).to("cuda")
+
+
+def _moe_dispatch(cfg, params, tokens) -> tuple:
+    """What the MoE layers of one prefill of ``tokens`` route (a reading
+    beside the path, not a kernel launch): a plain loop over the layers
+    computes each layer as ``decoder._apply_layer`` does and reads
+    ``moe.dispatch_counts`` on each MoE input.  Its last-position logits
+    must equal ``decoder.prefill``'s bit for bit, so what it read is what
+    the prefill routed.  Returns (the (token, choice) pairs dropped beyond
+    capacity over all layers, [each layer's pairs routed to each
+    expert])."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import decoder
+    from repro_torch.models import moe
+    from repro_torch.models.layers import apply_norm
+    drops, loads = [], []
+    with torch.no_grad():
+        p = decoder.cast_params(cfg, params)
+        x = decoder._embed(cfg, p, tokens)
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        rs = decoder._residual_scale(cfg)
+        for gp, (tag, count) in zip(p["groups"], decoder.layer_groups(cfg)):
+            if tag != ("attn", True):
+                fail(f"{cfg.name}: the routing reading takes attention + MoE layers, not {tag}")
+            for i in range(count):
+                lp = decoder._layer(gp, i)
+                h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+                x = x + attn.attention_forward(lp["attn"], cfg, h, positions,
+                                               window=cfg.sliding_window) * rs
+                h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
+                d, load = moe.dispatch_counts(lp["moe"], cfg, h)
+                drops.append(d)
+                loads.append(load)
+                x = x + moe.moe_forward(lp["moe"], cfg, h)[0] * rs
+        got = decoder._logits(cfg, p, x[:, -1:])
+        want, _, _ = decoder.prefill(cfg, params, tokens, tokens.shape[1])
+    if not torch.equal(got, want):
+        fail(f"{cfg.name}: the routing reading's layer loop computed other logits than "
+             f"decoder.prefill ({float((got.float() - want.float()).abs().max()):.4g} apart)")
+    return int(sum(int(d) for d in drops)), [x.tolist() for x in loads]
 
 
 def _prefill_launches(cfg) -> dict:
@@ -784,15 +847,18 @@ def _prefill_launches(cfg) -> dict:
 
 def _cut_depth(cfg, params, depth: int) -> tuple:
     """The first ``depth`` layers of ``cfg`` and ``params`` (the same
-    weights, no copy); ``depth`` must end a layer group."""
+    weights: views, no copy)."""
+    from repro_torch.common.pytree import tree_map
     from repro_torch.models import decoder
-    n = 0
-    for g, (_, count) in enumerate(decoder.layer_groups(cfg)):
-        n += count
+    groups, n = [], 0
+    for gp, (_, count) in zip(params["groups"], decoder.layer_groups(cfg)):
+        take = min(count, depth - n)
+        groups.append(gp if take == count else tree_map(lambda x: x[:take], gp))
+        n += take
         if n == depth:
             return (cfg.replace(num_layers=depth, layer_pattern=cfg.pattern()[:depth]),
-                    dict(params, groups=params["groups"][:g + 1]))
-    fail(f"{cfg.name}: depth {depth} does not end a layer group")
+                    dict(params, groups=groups))
+    fail(f"{cfg.name}: depth {depth} beyond its {cfg.num_layers} layers")
 
 
 def phase_serve(arch: str, check_dtype: str, readings: tuple = ()) -> dict:
@@ -801,29 +867,54 @@ def phase_serve(arch: str, check_dtype: str, readings: tuple = ()) -> dict:
     PyTorch) over the bf16 KV cache serving uses, gated at 2e-2 of the
     logits' scale in ``check_dtype``; the same check at each of
     ``readings``, (depth, cache dtype): the first layers of the same
-    weights, and the decode cache's dtype."""
+    weights, and the decode cache's dtype.  The weights are drawn in
+    ``check_dtype``, each leaf cast as it is drawn (``init_params(dtype=)``:
+    qwen3_moe_30b_a3b's fp32 draw would not fit the card).
+
+    An MoE model's checks are ``_moe_bf16``'s, on the served bf16
+    weights, and ``_moe_stepwise``'s: gated on a prompt of 2 x
+    ``MOE_GATE_LEN`` tokens, one group at full capacity, in fp32; a
+    prefill of 2 x CONSISTENCY_LEN tokens drops (token, choice) pairs
+    beyond the capacity that the reference's contract gives a 256-token
+    group, and decode, one group of 2 tokens, drops none, so there the two
+    paths differ by design: that reading is printed with the prefill's
+    drop count and not gated.  So are the serve prefill's drop count and
+    the expert load of its first and last MoE layer."""
+    import numpy as np
     import torch
     from repro_torch.common.pytree import tree_leaves
     from repro_torch.launch.serve import serve
     from repro_torch.models import decoder
+    from repro_torch.models.moe import _capacity
     from repro_torch.models.registry import get_config
 
     cfg = get_config(arch)
+    moe = cfg.moe is not None
     torch.cuda.reset_peak_memory_stats()
     h0 = time.perf_counter()
-    params = decoder.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    params = decoder.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                 dtype=getattr(torch, check_dtype))
     torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
     say(f"[serve] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads "
-        f"({cfg.num_kv_heads} kv) of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
-        f"{sum(x.numel() for x in tree_leaves(params))} parameters drawn in "
-        f"{cfg.param_dtype} in {time.perf_counter() - h0:.1f} s")
+        f"({cfg.num_kv_heads} kv) of {cfg.head_dim}"
+        + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff "
+           f"{cfg.moe.d_ff_expert}" if moe else f", d_ff {cfg.d_ff}")
+        + f"{', qk-norm' if cfg.qk_norm else ''}, vocab {cfg.vocab_size}: {n_params} parameters "
+        f"drawn in {cfg.param_dtype}"
+        + (f", each leaf cast to {check_dtype} as drawn" if check_dtype != cfg.param_dtype else "")
+        + f", in {time.perf_counter() - h0:.1f} s")
 
     gaps = {}
     has_kv = any(kind in ("attn", "shared_attn") for kind in cfg.pattern())
 
     def check(c, p, cache_dtype="bfloat16"):
-        err, scale = _prefill_vs_stepwise(c.replace(compute_dtype=check_dtype), p, cache_dtype)
+        cc = c.replace(compute_dtype=check_dtype)
+        if moe:
+            gaps.update(_moe_stepwise(arch, cc, p))
+            return
         kv = f", {cache_dtype} KV cache" if has_kv else ""
+        err, scale = _prefill_vs_stepwise(cc, p, cache_dtype)
         gaps[f"{c.num_layers} layers{kv}"] = err / scale
         say(f"[serve] {arch}: prefill of {CONSISTENCY_LEN} tokens vs {CONSISTENCY_LEN} "
             f"decode_step calls at full width, {c.num_layers} layers, {check_dtype} compute{kv}: "
@@ -839,8 +930,8 @@ def phase_serve(arch: str, check_dtype: str, readings: tuple = ()) -> dict:
             check(*_cut_depth(cfg, params, depth), cache_dtype)
     params = decoder.cast_params(cfg, params)       # once; the fp32 draws are freed here
     leaves = tree_leaves(params)
-    say(f"[serve] {arch}: cast to {cfg.compute_dtype}: "
-        f"{sum(x.numel() * x.element_size() for x in leaves) / 1e9:.3f} GB on the card")
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    say(f"[serve] {arch}: in {cfg.compute_dtype}: {nbytes / 1e9:.3f} GB on the card")
     serve(arch, smoke=False, batch=SERVE["batch"], prompt_len=SERVE["prompt_len"], gen=2,
           params=params, verbose=False)            # warm-up: cuBLAS handles, allocator
     stats = {}
@@ -861,13 +952,117 @@ def phase_serve(arch: str, check_dtype: str, readings: tuple = ()) -> dict:
         f"gen={SERVE['gen']}): prefill {stats['prefill_s']:.4f} s, decode {stats['decode_s']:.4f} s "
         f"({stats['decode_tok_per_s']:.2f} tok/s), logits finite, kernel launches {launches}, "
         f"sample {toks[0, :8].tolist()}")
+    out = {}
+    if moe:
+        # serve()'s prompt (np.random.RandomState(seed=0)), read again beside the path
+        prompt = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(SERVE["batch"], SERVE["prompt_len"]))).to("cuda")
+        dropped, loads = _moe_dispatch(cfg, params, prompt)
+        pairs = SERVE["batch"] * SERVE["prompt_len"] * cfg.moe.top_k
+        g = min(2048, SERVE["batch"] * SERVE["prompt_len"])
+        # decode reads every expert's weights each step (the reference's
+        # capacity dispatch at C = batch): its weight-read bound
+        table = params["embed"]["table"]
+        read_bytes = nbytes - (0 if cfg.tie_embeddings else table.numel() * table.element_size())
+        out = dict(dropped_pairs=dropped, pairs=pairs,
+                   load_first=(min(loads[0]), max(loads[0])),
+                   load_last=(min(loads[-1]), max(loads[-1])),
+                   decode_bound_ms=read_bytes / HBM_BYTES_PER_S * 1e3)
+        say(f"[serve] {arch}: the serve prefill's MoE routing (not gated): groups of {g} "
+            f"tokens at capacity {_capacity(g, cfg)} an expert; {dropped} of {pairs} (token, "
+            f"choice) pairs a layer x {cfg.num_layers} layers dropped "
+            f"({dropped / (pairs * cfg.num_layers):.3%}); pairs an expert, min / max, layer 0 "
+            f"{out['load_first'][0]} / {out['load_first'][1]}, layer {cfg.num_layers - 1} "
+            f"{out['load_last'][0]} / {out['load_last'][1]} (mean "
+            f"{pairs / cfg.moe.num_experts:.1f}); decode reads every expert a step: "
+            f"{read_bytes / 1e9:.2f} GB, a bound of {out['decode_bound_ms']:.3f} ms a step "
+            f"against {stats['decode_s'] / SERVE['gen'] * 1e3:.3f} ms")
+        gaps.update(_moe_bf16(arch, cfg, params))
     if check_dtype == "bfloat16":
         check(cfg, params)
     peak = torch.cuda.max_memory_allocated() / 1e9
     del params, leaves
     torch.cuda.empty_cache()
     return dict(stats, launches={k: launches[k] for k in per_prefill}, peak_gb=peak,
-                stepwise_gap_by_depth=gaps)
+                stepwise_gap_by_depth=gaps, **out)
+
+
+def _moe_stepwise(arch, cfg, params) -> dict:
+    """An MoE model's prefill-vs-stepwise check, in fp32 compute over an
+    fp32 KV cache (the cache then holds what the prefill attends to, so
+    the two paths compute one function), gated at 2e-2 of the logits'
+    scale on 2 x ``MOE_GATE_LEN`` tokens, one group at full capacity.  A
+    model in bf16 (qwen3_moe_30b_a3b: its fp32 tree would not fit) is
+    checked on an fp32 copy of its first ``MOE_FP32_LAYERS`` layers.  Not
+    gated: an fp32 model over serving's bf16 cache (it rounds decode's k
+    and v alone, and the rounding moves the router's choices), and 2 x
+    CONSISTENCY_LEN tokens, whose prefill drops (token, choice) pairs
+    beyond capacity where decode drops none.  Returns the gaps by
+    reading."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models.moe import _capacity
+    gaps = {}
+    L = MOE_GATE_LEN
+    cut = cfg.compute_dtype != "float32"
+    if cut:
+        cfg, params = _cut_depth(cfg, params, MOE_FP32_LAYERS)
+        cfg, params = cfg.replace(compute_dtype="float32"), tree_map(lambda x: x.float(), params)
+    what = f"the first {MOE_FP32_LAYERS} layers of the same weights in fp32" if cut else "full width"
+    n = cfg.num_layers
+    err, scale = _prefill_vs_stepwise(cfg, params, "float32", L)
+    gaps[f"{n} layers, float32 KV cache"] = err / scale
+    say(f"[serve] {arch}: prefill of {L} tokens vs {L} decode_step calls, {what}, batch 2, "
+        f"{n} layers, float32 compute and KV cache: last-position logits max abs diff {err:.4g} "
+        f"of scale {scale:.4g} ({err / scale:.3g}; limit 2e-2); one MoE group of {2 * L} "
+        f"tokens at capacity {_capacity(2 * L, cfg)}, nothing drops")
+    if not err <= 2e-2 * scale:
+        fail(f"{arch}: prefill vs stepwise decode {err:.4g} apart at {n} layers, beyond "
+             f"2e-2 x {scale:.4g}")
+    if not cut:
+        err, scale = _prefill_vs_stepwise(cfg, params, "bfloat16", L)
+        gaps[f"{n} layers, bfloat16 KV cache (not gated)"] = err / scale
+        say(f"[serve] {arch}: the same over serving's bfloat16 KV cache: max abs diff {err:.4g} "
+            f"of scale {scale:.4g} ({err / scale:.3g}), not gated: decode alone reads k and v "
+            f"rounded to bf16, and the rounding moves the router's choices")
+    L = CONSISTENCY_LEN
+    err, scale = _prefill_vs_stepwise(cfg, params, "float32", L)
+    dropped, _ = _moe_dispatch(cfg, params, _check_prompt(cfg, L))
+    gaps[f"{n} layers, float32 KV cache, {L} tokens (not gated)"] = err / scale
+    say(f"[serve] {arch}: prefill of {L} tokens vs {L} decode_step calls, {what}, batch 2, "
+        f"float32 compute and KV cache: max abs diff {err:.4g} of scale {scale:.4g} "
+        f"({err / scale:.3g}), not gated: the prefill routes one group of {2 * L} tokens at "
+        f"capacity {_capacity(2 * L, cfg)} an expert and dropped {dropped} (token, choice) "
+        f"pairs over its {n} layers; decode drops none")
+    return gaps
+
+
+def _moe_bf16(arch, cfg, params) -> dict:
+    """Serving's own arithmetic, bf16 compute over the bf16 KV cache, on
+    the served weights: a prefill of 2 x ``MOE_GATE_LEN`` tokens against
+    as many decode steps, at full depth (printed, not gated) and on the
+    first ``MOE_BF16_LAYERS`` layer, gated at 2e-2 of the logits' scale.
+    The two paths round differently in bf16 (the attention kernel keeps
+    its scores in fp32, decode rounds them to bf16 as the reference's
+    einsum does), and deeper in the random stack such a rounding moves a
+    near-tied router choice, so only the first layer is gated.  Returns
+    the gaps by reading."""
+    cfg = cfg.replace(compute_dtype="bfloat16")
+    L, gaps = MOE_GATE_LEN, {}
+    for c, p in ((cfg, params), _cut_depth(cfg, params, MOE_BF16_LAYERS)):
+        n, gated = c.num_layers, c.num_layers == MOE_BF16_LAYERS
+        err, scale = _prefill_vs_stepwise(c, p, "bfloat16", L)
+        layers = f"{n} layer{'s' if n > 1 else ''}"
+        gaps[f"{layers}, bfloat16 compute and KV cache" + ("" if gated else " (not gated)")] = \
+            err / scale
+        say(f"[serve] {arch}: prefill of {L} tokens vs {L} decode_step calls, batch 2, {layers} "
+            f"of the served weights, bfloat16 compute and KV cache: max abs diff "
+            f"{err:.4g} of scale {scale:.4g} ({err / scale:.3g}"
+            + ("; limit 2e-2)" if gated else "), not gated: the paths' bf16 roundings differ "
+               "and, deeper, move near-tied router choices"))
+        if gated and not err <= 2e-2 * scale:
+            fail(f"{arch}: bf16 prefill vs stepwise decode {err:.4g} apart at {n} layer(s), "
+                 f"beyond 2e-2 x {scale:.4g}")
+    return gaps
 
 
 def algo1_federation(device: str = "cuda", init=None):
@@ -1321,7 +1516,7 @@ CKPT_RUNS = [   # (name, Federation.run overrides, checkpoint_every) on the main
 ]
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy")
-OBS_LAPS = 2                     # (off, on, on, off) turns of the overhead lap
+OBS_LAPS = 1                     # (off, on, on, off) turns of the overhead lap (cut from 2)
 KILL_TIMEOUT_S = 300             # the killed child's first checkpoint must land by then
 
 
@@ -1684,7 +1879,7 @@ def phase_obs(whole):
         # reach it (obs removes nothing) and no reading may pass it (obs
         # adds nothing); the synchronising calls must agree everywhere
         window = dict(rounds=1, mode="event", algorithm="vafl", engine="batched")
-        turns = (False, True, True, False) * 2
+        turns = (False, True, True, False)
         readings = [(on, *_profile_counts(lambda on=on: cap.run(obs=True if on else None,
                                                                  **window)))
                     for on in turns]
@@ -1697,7 +1892,8 @@ def phase_obs(whole):
         say(f"[obs] profiled batched window of 7, {len(turns)} readings in turns (off, on, on, "
             f"off): CUDA kernels off {[sum(k.values()) for o, k, _ in readings if not o]}, on "
             f"{[sum(k.values()) for o, k, _ in readings if o]}; complete ({sum(full.values())} "
-            f"kernels, {len(full)} names) off {complete[False]} of 4, on {complete[True]} of 4; "
+            f"kernels, {len(full)} names) off {complete[False]} of {turns.count(False)}, on "
+            f"{complete[True]} of {turns.count(True)}; "
             f"synchronising runtime calls {sorted(syncs)}")
         if not complete[True] or not complete[False] or len(syncs) != 1:
             fail("obs changed a window's CUDA kernels or synchronising calls")
@@ -1732,7 +1928,9 @@ def phase_obs(whole):
             "window_syncs": readings[0][2]}
 
 
-FL_SERVE_ROUNDS = 2                             # bridge and thread runs (depth cut from 3)
+FL_SERVE_ROUNDS = 1                             # bridge and thread runs (depth cut from 3, 2)
+# the bridge resume: 2 rounds, from the checkpoint at event 10, past round 1's end
+FL_SERVE_RESUME = dict(rounds=2, checkpoint_every=10)
 FL_SERVE_BRIDGE = ("vafl", "afl", "fedasync")   # bridge runs held against run(mode="event")
 FL_SERVE_THREADS = ("vafl", "afl")              # thread-worker runs
 FL_SERVE_WAIT = dict(stall_timeout=120.0, recv_timeout=120.0)
@@ -1901,13 +2099,16 @@ def phase_fl_serve(cap, refs):
     out["busy"] = share
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/serve.ckpt"
-        kw = dict(rounds=3, driver="sequential", algorithm="afl", error_feedback=False)
+        kw = dict(rounds=FL_SERVE_RESUME["rounds"], driver="sequential", algorithm="afl",
+                  error_feedback=False)
         ref, _, _, _ = _served(cap, **kw)
         ref_p = cap.final()
-        _served(cap, checkpoint_path=path, checkpoint_every=10, **kw)
+        _served(cap, checkpoint_path=path, checkpoint_every=FL_SERVE_RESUME["checkpoint_every"],
+                **kw)
         res, _, gd, tq = _served(cap, checkpoint_path=path, resume=True, **kw)
         same = _everything(res) == _everything(ref) and _same_params(cap.final(), ref_p)
-        say(f"[fl-serve] bridge resume of afl (error_feedback=False) from event 20: "
+        say(f"[fl-serve] bridge resume of afl (error_feedback=False), {kw['rounds']} rounds, "
+            f"from the checkpoint at event {FL_SERVE_RESUME['checkpoint_every']}: "
             f"{'bit-equal' if same else 'DIFFERENT'}, launches after it topk_quant {tq}")
         if not same:
             fail("[fl-serve] the bridge's afl resume differs from the whole run")
@@ -1949,7 +2150,10 @@ def _launch_pair():
     return gd_ops.launches, tq_ops.launches
 
 
-FL_WIRE_ROUNDS = 2                               # every [fl-wire] run: 14 events
+FL_WIRE_ROUNDS = 1                               # every [fl-wire] run but two: 7 events
+FL_WIRE_THREAD_ROUNDS = 2                        # the socket threads' vafl run: 14 events, so
+                                                 # each worker's 2nd value reads its 1st gradient
+FL_WIRE_CHAOS_ROUNDS = 2                         # the chaos soak's laps: 14 events
 FL_WIRE_BRIDGE = ("vafl", "afl")                 # the bridge over TCP, held against the event run
 FL_WIRE_STALL = 3.0                              # stall timeout after the SIGKILL
 FL_WIRE_CHAOS = dict(drop=0.15, duplicate=0.1, reorder=0.1, blackout=0.03, blackout_s=0.3,
@@ -2316,9 +2520,11 @@ def _live_plane(fed, cfg) -> dict:
 
 def phase_fl_wire(cap, refs, fl_serve) -> dict:
     """``[fl-wire]``: the served federation over the wire and its faults,
-    2 rounds (14 events) a run: the bridge over TCP for vafl and afl
-    bit-equal to ``run(mode="event")`` with the same launches; thread
-    workers over ``socket`` (vafl); seven process workers on the card
+    1 round (7 events) a run, the socket threads' vafl run and the chaos
+    soak 2 (14 events): the bridge over TCP for vafl and afl bit-equal to
+    ``run(mode="event")`` with the same launches; thread workers over
+    ``socket`` (vafl: each worker's second event computes Eq. 1's value
+    from its first event's gradient); seven process workers on the card
     over ``socket`` (afl), their launches counted in the children; a
     process worker SIGKILLed after its first upload; the chaos soak over
     ``inproc`` and ``socket``; the live HTTP plane.  Every launch counted
@@ -2345,8 +2551,9 @@ def phase_fl_wire(cap, refs, fl_serve) -> dict:
                  f"{ev_l}")
         out["bridge"][alg] = secs / events
     base = dataclasses.replace(fed.config, rounds=FL_WIRE_ROUNDS)
-    res, secs, gd, tq = _served(cap, rounds=FL_WIRE_ROUNDS, algorithm="vafl", transport="socket",
-                                **FL_SERVE_WAIT)
+    t_events = FL_WIRE_THREAD_ROUNDS * n
+    res, secs, gd, tq = _served(cap, rounds=FL_WIRE_THREAD_ROUNDS, algorithm="vafl",
+                                transport="socket", **FL_SERVE_WAIT)
     c = res.comm
     share, kernels, wall, _ = busy_share(lambda: fed.serve(rounds=1, algorithm="vafl",
                                                           transport="socket", **FL_SERVE_WAIT))
@@ -2354,17 +2561,18 @@ def phase_fl_wire(cap, refs, fl_serve) -> dict:
         f"{c.model_uploads}, reports {c.scalar_reports}, uplink bytes {c.uplink_bytes} (ledgers "
         f"sum {sum(res.client_uplink_bytes)}), downlink {c.downlink_bytes} (sum "
         f"{sum(res.client_downlink_bytes)}), launches grad_diff_norm {gd}, topk_quant {tq}; "
-        f"{secs:.4f} s, {events / secs:.3f} events/s ([fl-serve] inproc "
+        f"{secs:.4f} s, {t_events / secs:.3f} events/s ([fl-serve] inproc "
         f"{fl_serve['threads']['vafl']:.3f}); a profiled 1-round run: {kernels} CUDA kernels, "
         f"device busy {share:.1%} of {wall:.4f} s ([fl-serve] inproc {fl_serve['busy']:.1%})")
-    if (c.broadcasts != events or sum(res.client_uplink_bytes) != c.uplink_bytes
+    if (c.broadcasts != t_events or sum(res.client_uplink_bytes) != c.uplink_bytes
             or sum(res.client_downlink_bytes) != c.downlink_bytes or tq != c.model_uploads
-            or gd != events):
+            or gd != t_events):
         fail("[fl-wire] the thread run over socket did not end whole or reconcile")
-    out["threads"] = {"events_per_s": events / secs, "busy": share}
+    out["threads"] = {"events_per_s": t_events / secs, "busy": share}
     out["process"] = _process_fleet(fed, dataclasses.replace(base, algorithm="afl"))
     out["killed"] = _killed_worker(fed, dataclasses.replace(base, algorithm="afl"))
-    out["chaos"] = _chaos_soak(fed, dataclasses.replace(base, algorithm="afl"))
+    out["chaos"] = _chaos_soak(fed, dataclasses.replace(base, algorithm="afl",
+                                                        rounds=FL_WIRE_CHAOS_ROUNDS))
     out["live"] = _live_plane(fed, base)
     return out
 
@@ -3023,6 +3231,13 @@ def main() -> None:
               "rwkv6_3b": phase_serve("rwkv6_3b", "float32"),
               "zamba2_7b": phase_serve("zamba2_7b", "float32", readings=ZAMBA2_GAP_READINGS)}
     mark("serve")
+    # granite is drawn in fp32 (13.2 GB) and checked whole; qwen3 is drawn
+    # in bf16 (its 30.5 B parameters would not fit in fp32) and checked in
+    # fp32 on a copy of its first layers (_moe_stepwise)
+    served["granite_moe_3b_a800m"] = phase_serve("granite_moe_3b_a800m", "float32")
+    mark("serve-granite")
+    served["qwen3_moe_30b_a3b"] = phase_serve("qwen3_moe_30b_a3b", "bfloat16")
+    mark("serve-qwen3")
     say("[time] phases (host seconds): " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 
@@ -3064,24 +3279,26 @@ def main() -> None:
                    fl_wire_launches=fw_counts["topk_quant"],
                    fl_wire_child_launches=fl_wire["process"]["child_launches"],
                    figures_launches=fig_counts["topk_quant"])
-    # each serving row keeps its first model's shape and adds zamba2_7b's
-    fa_z = next(r for r in fa_rows if (*r["shape"], r["window"], r["dtype"]) == FA_ZAMBA2)
+    # each serving row keeps its first model's shape and adds the later
+    # models' under their own prefix
+    fa_by = {arch: next(r for r in fa_rows if (*r["shape"], r["window"], r["dtype"]) == case)
+             for arch, case in FA_MODEL.items()}
     ls_z = next(r for r in ls_rows if r["form"] == "mamba-head")
-    zl = served["zamba2_7b"]["launches"]
 
-    def with_zamba2(row, z, launches):
-        return dict(row, zamba2_shape=z["shape"], zamba2_ms=z["ms"], zamba2_bound_ms=z["bound_ms"],
-                    zamba2_bound_by=z["bound_by"], zamba2_plain_ms=z["plain_ms"],
-                    zamba2_library_ms=z["library_ms"], zamba2_max_abs_err=z["max_abs_err"],
-                    zamba2_launches=launches)
+    def with_model(row, arch, prefix, z):
+        launches = served[arch]["launches"][row["name"]]
+        return dict(row, **{f"{prefix}_{k}": z[k] for k in (
+            "shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms", "max_abs_err")},
+            **{f"{prefix}_launches": launches})
 
-    main_fa = with_zamba2(dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"]
-                               ["flash_attention"],
-                               tensor_core_instructions=sass["flash_attention"]),
-                          fa_z, zl["flash_attention"])
-    main_ls = with_zamba2(dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"]["linear_scan"],
-                               tensor_core_instructions=sass["linear_scan"]),
-                          ls_z, zl["linear_scan"])
+    main_fa = dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"]["flash_attention"],
+                   tensor_core_instructions=sass["flash_attention"])
+    for arch, prefix in (("zamba2_7b", "zamba2"), ("granite_moe_3b_a800m", "granite_moe"),
+                         ("qwen3_moe_30b_a3b", "qwen3_moe")):
+        main_fa = with_model(main_fa, arch, prefix, fa_by[arch])
+    main_ls = with_model(dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"]["linear_scan"],
+                              tensor_core_instructions=sass["linear_scan"]),
+                         "zamba2_7b", "zamba2", ls_z)
     say(f"[time] main path seconds per round (3 rounds, host clock, synchronized): "
         f"vafl {secs['vafl'] / 3:.4f}, afl {secs['afl'] / 3:.4f}")
     say("[time] event path (host clock, synchronized): "
@@ -3126,7 +3343,8 @@ def main() -> None:
         f"({fc['socket'] / fc['fault_free_s']:.2f} x)")
     kernel_ms = {("starcoder2_3b", "flash_attention"): fa_rows[0]["ms"],
                  ("rwkv6_3b", "linear_scan"): ls_rows[0]["ms"],
-                 ("zamba2_7b", "flash_attention"): fa_z["ms"], ("zamba2_7b", "linear_scan"): ls_z["ms"]}
+                 ("zamba2_7b", "linear_scan"): ls_z["ms"],
+                 **{(arch, "flash_attention"): r["ms"] for arch, r in fa_by.items()}}
     for arch, st in served.items():
         parts = [(name, n, kernel_ms[(arch, name)]) for name, n in st["launches"].items()]
         say(f"[time] serve {arch} (host clock, synchronized): prefill {st['prefill_s']:.4f} s "
@@ -3135,7 +3353,11 @@ def main() -> None:
             f"{st['decode_s']:.4f} s); "
             + ", ".join(f"{n} {name} launches x {ms:.4f} ms = {n * ms / 1e3 / st['prefill_s']:.1%}"
                         for name, n, ms in parts)
-            + f" of the prefill; peak device memory {st['peak_gb']:.2f} GB")
+            + f" of the prefill; peak device memory {st['peak_gb']:.2f} GB"
+            + (f"; MoE: {st['dropped_pairs']} (token, choice) pairs dropped in the prefill, "
+               f"pairs an expert at layer 0 {st['load_first'][0]}-{st['load_first'][1]}, decode's "
+               f"weight-read bound {st['decode_bound_ms']:.3f} ms a step"
+               if "dropped_pairs" in st else ""))
     # the backward's row: the train path's shape (minicpm_2b, bf16, no
     # window); its launches are the [train] path's, one 5-step
     # make_train_step run's beside them

@@ -18,37 +18,41 @@ def tree_flatten(tree):
     """Leaves in ``jax.tree.flatten`` order, plus the structure that
     ``tree_unflatten`` rebuilds the tree from."""
     leaves = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return (dict, tuple((k, walk(t[k])) for k in sorted(t)))
-        if isinstance(t, (list, tuple)):
-            return (type(t), tuple(walk(x) for x in t))
-        leaves.append(t)
-        return _LEAF
 
-    return leaves, walk(tree)
+def _walk(t, leaves):
+    # a module-level function, not a closure that names itself: such a
+    # closure is a reference cycle holding ``leaves``, so every flattened
+    # tree stayed alive until the cyclic collector ran (a full-width
+    # model's parameters among them)
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return (dict, tuple((k, _walk(t[k], leaves)) for k in sorted(t)))
+    if isinstance(t, (list, tuple)):
+        return (type(t), tuple(_walk(x, leaves) for x in t))
+    leaves.append(t)
+    return _LEAF
 
 
 def tree_unflatten(treedef, leaves):
     it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return None
-        if d == _LEAF:
-            return next(it)
-        kind, items = d
-        if kind is dict:
-            return {k: build(v) for k, v in items}
-        return kind(build(v) for v in items)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out
+
+
+def _build(d, it):
+    if d is None:
+        return None
+    if d == _LEAF:
+        return next(it)
+    kind, items = d
+    if kind is dict:
+        return {k: _build(v, it) for k, v in items}
+    return kind(_build(v, it) for v in items)
 
 
 def tree_leaves(tree):

@@ -4,14 +4,17 @@ of ``repro.launch.serve``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --smoke \\
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-(``--arch`` also starcoder2_3b, minicpm_2b and zamba2_7b.)  The device
+(``--arch`` also starcoder2_3b, minicpm_2b, zamba2_7b and the two MoE
+models, granite_moe_3b_a800m and qwen3_moe_30b_a3b.)  The device
 defaults to ``cuda`` and raises without a card.  On the card the
 prompt's attention (zamba2_7b's shared block at head_dim 112 among it)
 runs through the flash_attention kernel, and RWKV6's time-mix and
-Mamba2's per-head scan through the linear_scan kernel; decode is plain
-PyTorch, as in the reference.  Parameters are drawn from an explicit
-``torch.Generator`` in ``param_dtype`` and cast to the compute dtype
-once, after which the fp32 draws are dropped.
+Mamba2's per-head scan through the linear_scan kernel; decode, and the
+MoE layers' routing and expert products, are plain PyTorch, as in the
+reference.  Parameters are drawn from an explicit ``torch.Generator``
+in ``param_dtype``, each leaf cast to the compute dtype as it is drawn
+(``decoder.init_params(dtype=)``), so no fp32 tree is ever whole:
+qwen3_moe_30b_a3b's 30.5 B parameters take 61 GB in bf16.
 """
 from __future__ import annotations
 
@@ -43,8 +46,9 @@ def serve(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
                            "for the plain path")
     cfg = cfg or (get_smoke_config(arch) if smoke else get_config(arch))
     if params is None:
-        params = decoder.init_params(cfg, torch.Generator(device=device).manual_seed(0))
-    params = decoder.cast_params(cfg, params)   # once; the fp32 draws are freed here
+        params = decoder.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                     dtype=getattr(torch, cfg.compute_dtype))
+    params = decoder.cast_params(cfg, params)   # once; free for a tree cast already
     cache_len = cache_len or (prompt_len + gen)
     prefill_fn = make_prefill_step(cfg, fill_cache=True, cache_len=cache_len)
     step_fn = make_serve_step(cfg)
@@ -85,7 +89,9 @@ def serve(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="minicpm_2b, starcoder2_3b, rwkv6_3b, zamba2_7b, "
+                         "granite_moe_3b_a800m or qwen3_moe_30b_a3b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -20,8 +20,9 @@ kernel on the card.  RWKV6 and Mamba2 (zamba2_7b) configs raise
 ``NotImplementedError`` on the card while grad is enabled
 (``models/recurrence.py``: no linear_scan backward yet), and so does
 the backward at zamba2_7b's head_dim of 112; the prefill and serve
-steps take every ported config.  The reference's
-``q_chunk`` and ``moe_dispatch`` have no counterpart (``models/decoder``).
+steps take every ported config.  Each step takes the reference's
+``moe_dispatch`` ("einsum" or "sort") for the MoE configs; its
+``q_chunk`` has no counterpart (``models/decoder``).
 """
 from __future__ import annotations
 
@@ -48,14 +49,15 @@ def value_and_grad(loss_fn, params, *args):
     return loss.detach(), tree_unflatten(treedef, list(grads))
 
 
-def make_train_step(cfg, *, lr: float = 3e-4, remat: bool = True, grad_clip: float = 1.0):
+def make_train_step(cfg, *, lr: float = 3e-4, moe_dispatch: str = "einsum", remat: bool = True,
+                    grad_clip: float = 1.0):
     """Returns (train_step, opt_init):
     ``train_step(params, opt_state, batch, step) -> (params, opt_state,
     {"loss", "grad_norm"})`` with batch {"tokens", "labels"} (B, S)."""
     opt_init, opt_update = adamw(lr, weight_decay=0.01)
 
     def lossf(p, batch):
-        return decoder.loss_fn(cfg, p, batch, remat=remat)
+        return decoder.loss_fn(cfg, p, batch, moe_dispatch=moe_dispatch, remat=remat)
 
     def train_step(params, opt_state, batch, step):
         loss, grads = value_and_grad(lossf, params, batch)
@@ -67,30 +69,33 @@ def make_train_step(cfg, *, lr: float = 3e-4, remat: bool = True, grad_clip: flo
     return train_step, opt_init
 
 
-def make_prefill_step(cfg, *, fill_cache: bool = False, cache_len: int = 0):
+def make_prefill_step(cfg, *, moe_dispatch: str = "einsum", fill_cache: bool = False,
+                      cache_len: int = 0):
     """fill_cache=True runs the serving prefill (returns the filled decode
     cache alongside the last-position logits)."""
     @torch.no_grad()
     def prefill_step(params, batch):
         if fill_cache:
-            logits, cache, _ = decoder.prefill(cfg, params, batch["tokens"], cache_len)
+            logits, cache, _ = decoder.prefill(cfg, params, batch["tokens"], cache_len,
+                                               moe_dispatch=moe_dispatch)
             return logits, cache
-        logits, _ = decoder.forward(cfg, params, batch["tokens"])
+        logits, _ = decoder.forward(cfg, params, batch["tokens"], moe_dispatch=moe_dispatch)
         return logits[:, -1]
     return prefill_step
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, *, moe_dispatch: str = "einsum"):
     @torch.no_grad()
     def serve_step(params, cache, token, pos: int):
-        return decoder.decode_step(cfg, params, cache, token, pos)
+        return decoder.decode_step(cfg, params, cache, token, pos, moe_dispatch=moe_dispatch)
     return serve_step
 
 
 # ------------------------------------------------------ FL across silos ---
 
-def make_fl_train_step(cfg, *, n_pods: int, lr: float = 3e-4, algorithm: str = "vafl",
-                       local_steps: int = 1, local_lr: float = 1e-2, comm_dtype=None):
+def make_fl_train_step(cfg, *, n_pods: int, lr: float = 3e-4, moe_dispatch: str = "einsum",
+                       algorithm: str = "vafl", local_steps: int = 1, local_lr: float = 1e-2,
+                       comm_dtype=None):
     """Cross-silo VAFL train step.
 
     batch leaves have a leading pod axis (n_pods, B_pod, ...); params are
@@ -126,7 +131,7 @@ def make_fl_train_step(cfg, *, n_pods: int, lr: float = 3e-4, algorithm: str = "
     policy = get_algorithm(algorithm).make_policy(FLRunConfig(algorithm=algorithm))
 
     def lossf(p, batch):
-        return decoder.loss_fn(cfg, p, batch)
+        return decoder.loss_fn(cfg, p, batch, moe_dispatch=moe_dispatch)
 
     def pod_grad(p, pod_batch):
         """One silo's contribution: plain grad, or the effective gradient

@@ -9,8 +9,9 @@ are drawn from ``torch.Generator(device).manual_seed(0)`` in
 reference.  Each step is ``make_train_step``: the decoder's LM loss with
 each layer checkpointed, its gradient (on the card through the
 flash_attention forward and backward kernels), a global-norm clip and
-AdamW.  The reference's production mesh (``--mesh prod``) and MoE
-dispatch have no counterpart: the port trains on one device.
+AdamW.  The reference's production mesh (``--mesh prod``) has no
+counterpart: the port trains on one device, an MoE config through the
+default "einsum" dispatch.
 ``--ckpt-dir`` saves the final parameters through
 ``repro_torch.checkpoint.save``.
 """

@@ -1,8 +1,9 @@
 """Decoder stack for training and serving: dense GQA (starcoder2 and
-minicpm style), RWKV6, and the Mamba2 hybrid with one shared attention
-block (Zamba2).  Port of the ``("attn", False)``, ``("rwkv6", False)``,
-``("mamba2", False)`` and ``("shared_attn", False)`` layer families of
-``repro.models.decoder``.
+minicpm style, with qwen3's per-head q/k RMSNorm), Mixture-of-Experts
+(granite and qwen3-moe), RWKV6, and the Mamba2 hybrid with one shared
+attention block (Zamba2).  Port of the ``("attn", False)``,
+``("attn", True)``, ``("rwkv6", False)``, ``("mamba2", False)`` and
+``("shared_attn", False)`` layer families of ``repro.models.decoder``.
 
 Layers are grouped into maximal runs of identical block type with
 stacked parameters, as in the reference, so a reference tree carries
@@ -10,18 +11,23 @@ over leaf for leaf (``repro_torch.weights.from_jax_params``); where the
 reference runs ``lax.scan`` over a group, the port loops over the layer
 index.  A ``shared_attn`` layer holds its own norms and MLP and reads the
 one attention block at the top level, ``params["shared_attn"]``, which
-every invocation shares; each invocation keeps its own KV cache.  MoE,
-MLA, encoder-decoder, modality frontends, parallel blocks and qk-norm
-raise ``NotImplementedError`` (ROADMAP.md §1 item 11).
+every invocation shares; each invocation keeps its own KV cache.  An MoE
+layer holds ``moe`` (``models/moe.py``) in place of ``mlp`` and returns
+its router's load-balance loss, which ``forward`` sums over the layers
+and ``loss_fn`` adds at ``cfg.moe.router_aux_coef``.  MLA,
+encoder-decoder, modality frontends and parallel blocks raise
+``NotImplementedError`` (ROADMAP.md §1 item 11).
 
 Public API (plain functions of (cfg, params, ...)):
-  init_params(cfg, generator)
+  init_params(cfg, generator, dtype=None)
   forward(cfg, params, tokens, remat=True)       -> logits, aux
   loss_fn(cfg, params, batch, remat=True)        -> loss, metrics
   prefill(cfg, params, tokens, cache_len)        -> last logits, cache, next pos
   init_cache(cfg, params, batch, cache_len)
   decode_step(cfg, params, cache, token, pos)    -> logits, cache
 
+``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take the
+reference's ``moe_dispatch`` ("einsum" or "sort"; MoE layers only).
 ``forward`` and ``loss_fn`` are differentiable in the parameters (the
 attention layer's kernels have a backward; RWKV6 and Mamba2 train on the
 CPU only, ``models/recurrence.py``, and so does the shared attention at
@@ -29,24 +35,26 @@ zamba2's head dim of 112, which the backward kernel does not take).
 ``remat`` recomputes each layer's forward in the backward
 (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
 activations, as the reference's ``jax.checkpoint`` of the scanned layer
-does; it acts only while grad is enabled and changes no number.  The reference's ``q_chunk`` and ``moe_dispatch`` have no
-counterpart (the attention kernels never materialise the scores; MoE is
-not ported).
+does; it acts only while grad is enabled and changes no number.  The
+reference's ``q_chunk`` has no counterpart: the attention kernels never
+materialise the scores.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common.pytree import tree_map
+from repro_torch.common.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrence as rec
 from repro_torch.models.factory import ParamFactory
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        init_unembed, unembed)
 
-PORTED_TAGS = (("attn", False), ("rwkv6", False), ("mamba2", False), ("shared_attn", False))
+PORTED_TAGS = (("attn", False), ("attn", True), ("rwkv6", False), ("mamba2", False),
+               ("shared_attn", False))
 
 
 # ------------------------------------------------------------- grouping ---
@@ -70,9 +78,8 @@ def check_supported(cfg) -> None:
     """Raise NotImplementedError for the parts of the zoo not ported yet."""
     missing = [f"layer {t}" for t, _ in layer_groups(cfg) if t not in PORTED_TAGS]
     missing += [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.attention == "mla"),
-        ("encoder", cfg.encoder is not None), ("frontend", cfg.frontend is not None),
-        ("parallel_block", cfg.parallel_block), ("qk_norm", cfg.qk_norm)) if on]
+        ("mla", cfg.attention == "mla"), ("encoder", cfg.encoder is not None),
+        ("frontend", cfg.frontend is not None), ("parallel_block", cfg.parallel_block)) if on]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported to "
                                   f"repro_torch yet (ROADMAP.md §1 item 11)")
@@ -81,7 +88,7 @@ def check_supported(cfg) -> None:
 # ----------------------------------------------------------------- init ---
 
 def _init_layer(fac, cfg, tag):
-    kind, _ = tag
+    kind, is_moe = tag
     p = {"norm1": init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)}
     if kind == "mamba2":
         p["mamba"] = rec.init_mamba2(fac, cfg)
@@ -93,20 +100,53 @@ def _init_layer(fac, cfg, tag):
     if kind == "attn":
         p["attn"] = attn.init_attention(fac, cfg)
     p["norm2"] = init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)
-    p["mlp"] = init_mlp(fac, cfg.d_model, cfg.d_ff, cfg.activation, cfg.use_bias)
+    if is_moe:
+        p["moe"] = moe_lib.init_moe(fac, cfg)
+    else:
+        p["mlp"] = init_mlp(fac, cfg.d_model, cfg.d_ff, cfg.activation, cfg.use_bias)
     return p
 
 
+class _CastingFactory(ParamFactory):
+    """A ``ParamFactory`` that casts each floating leaf to ``cast`` as soon
+    as it is drawn: the values ``cast_params`` gives the whole draw."""
+
+    def __init__(self, generator, dtype, cast):
+        super().__init__(generator, dtype=dtype)
+        self.cast = cast
+
+    def param(self, *args, **kwargs):
+        x = super().param(*args, **kwargs)
+        return x.to(self.cast) if x.is_floating_point() else x
+
+
 def _stack_layers(fac, cfg, tag, count):
-    layers = [_init_layer(fac, cfg, tag) for _ in range(count)]
-    return tree_map(lambda *xs: torch.stack(xs), *layers)
+    """``count`` layers drawn one after another, each written into the
+    stacked buffers as it comes: one layer's leaves live beside the stack."""
+    leaves, treedef = tree_flatten(_init_layer(fac, cfg, tag))
+    stacked = [torch.empty((count,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+               for x in leaves]
+    for i in range(count):
+        if i:
+            leaves = tree_leaves(_init_layer(fac, cfg, tag))
+        for buf, x in zip(stacked, leaves):
+            buf[i] = x
+        del leaves
+    return tree_unflatten(treedef, stacked)
 
 
-def init_params(cfg, generator: torch.Generator):
+def init_params(cfg, generator: torch.Generator, dtype=None):
     """Parameter tree drawn from ``generator`` on its device, in
-    ``cfg.param_dtype``."""
+    ``cfg.param_dtype``; with ``dtype`` each floating leaf is cast to it
+    as soon as it is drawn.  The draw order is the same either way, so
+    ``init_params(cfg, gen, dtype=ct)`` equals ``cast_params`` of the
+    ``param_dtype`` draw bit for bit while holding the cast tree and one
+    leaf of ``param_dtype`` at a time (qwen3_moe_30b_a3b: 61 GB in bf16
+    where its fp32 draw would need 122 GB)."""
     check_supported(cfg)
-    fac = ParamFactory(generator, dtype=getattr(torch, cfg.param_dtype))
+    pt = getattr(torch, cfg.param_dtype)
+    fac = ParamFactory(generator, dtype=pt) if dtype is None else \
+        _CastingFactory(generator, pt, dtype)
     params = {
         "embed": init_embedding(fac, cfg.padded_vocab(), cfg.d_model),
         "groups": [_stack_layers(fac, cfg, tag, count) for tag, count in layer_groups(cfg)],
@@ -160,24 +200,32 @@ def _logits(cfg, params, x):
     return _mask_padded_vocab(cfg, logits)
 
 
+def _ffn(cfg, lp, h, tag, moe_dispatch):
+    """The layer's MLP, or its MoE: (y, aux loss or None)."""
+    if tag[1]:
+        return moe_lib.moe_forward(lp["moe"], cfg, h, dispatch=moe_dispatch)
+    return apply_mlp(lp["mlp"], h, cfg.activation), None
+
+
 def _apply_layer(cfg, lp, shared, x, positions, tag, *, window=None, cache_len=None,
-                 cache_dtype=torch.bfloat16):
+                 cache_dtype=torch.bfloat16, moe_dispatch="einsum"):
     """One layer forward (training/prefill); ``shared`` is the top-level
-    attention block a ``shared_attn`` layer reads.  With ``cache_len`` it
-    also returns the layer's filled decode cache, else None."""
+    attention block a ``shared_attn`` layer reads.  Returns (x, the
+    layer's filled decode cache with ``cache_len``, else None, its MoE
+    aux loss, else None)."""
     kind, _ = tag
     rs = _residual_scale(cfg)
     if kind == "mamba2":
         h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
         y, (conv, ssm) = rec.mamba2_forward(lp["mamba"], cfg, h)
-        return x + y * rs, {"conv": conv, "ssm": ssm}
+        return x + y * rs, {"conv": conv, "ssm": ssm}, None
     if kind == "rwkv6":
         h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
         y, (sh, wkv) = rec.rwkv6_time_mix(lp["tm"], cfg, h)
         x = x + y * rs
         h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
         y, cm_sh = rec.rwkv6_channel_mix(lp["tm"], h)
-        return x + y * rs, {"tm_shift": sh, "wkv": wkv, "cm_shift": cm_sh}
+        return x + y * rs, {"tm_shift": sh, "wkv": wkv, "cm_shift": cm_sh}, None
 
     h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
     ap = shared if kind == "shared_attn" else lp["attn"]
@@ -190,48 +238,58 @@ def _apply_layer(cfg, lp, shared, x, positions, tag, *, window=None, cache_len=N
                   "v": _pack_rotating(v, alen, cache_dtype)}
     x = x + a * rs
     h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
-    y = apply_mlp(lp["mlp"], h, cfg.activation)
-    return x + y * rs, lcache
+    y, aux = _ffn(cfg, lp, h, tag, moe_dispatch)
+    return x + y * rs, lcache, aux
 
 
-def _train_layer(cfg, tag, lp, shared, x, positions):
-    return _apply_layer(cfg, lp, shared, x, positions, tag, window=cfg.sliding_window)[0]
+def _train_layer(cfg, tag, moe_dispatch, lp, shared, x, positions):
+    x, _, aux = _apply_layer(cfg, lp, shared, x, positions, tag, window=cfg.sliding_window,
+                             moe_dispatch=moe_dispatch)
+    return x, aux
 
 
-def forward(cfg, params, tokens, *, remat: bool = True):
-    """tokens (B, S).  Returns (logits (B, S, V), aux loss 0.0).  With
-    ``remat`` and grad enabled each layer is checkpointed."""
+def forward(cfg, params, tokens, *, moe_dispatch: str = "einsum", remat: bool = True):
+    """tokens (B, S).  Returns (logits (B, S, V), the MoE layers' summed
+    aux loss, fp32; 0 without MoE).  With ``remat`` and grad enabled each
+    layer is checkpointed."""
     check_supported(cfg)
     params = cast_params(cfg, params)
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     remat = remat and torch.is_grad_enabled()
     shared = params.get("shared_attn")
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gp, (tag, count) in zip(params["groups"], layer_groups(cfg)):
         for i in range(count):
+            args = (cfg, tag, moe_dispatch, _layer(gp, i), shared, x, positions)
             if remat:
-                x = checkpoint(_train_layer, cfg, tag, _layer(gp, i), shared, x, positions,
-                               use_reentrant=False)
+                x, aux = checkpoint(_train_layer, *args, use_reentrant=False)
             else:
-                x = _train_layer(cfg, tag, _layer(gp, i), shared, x, positions)
-    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+                x, aux = _train_layer(*args)
+            if aux is not None:
+                aux_total = aux_total + aux
+    return _logits(cfg, params, x), aux_total
 
 
 # ----------------------------------------------------------------- loss ---
 
-def loss_fn(cfg, params, batch, *, remat: bool = True):
+def loss_fn(cfg, params, batch, *, moe_dispatch: str = "einsum", remat: bool = True):
     """batch: {"tokens": (B, S), "labels": (B, S) with -1 = masked}.
     Mean next-token NLL over the unmasked labels, from an fp32
-    ``log_softmax`` of the logits.  Returns (loss, {"nll", "aux"})."""
+    ``log_softmax`` of the logits, plus ``router_aux_coef`` times the
+    summed aux loss for an MoE config.  Returns (loss, {"nll", "aux"}):
+    "nll" is the loss itself, as in the reference."""
     if "prefix_embeds" in batch or "encoder_embeds" in batch:
         raise NotImplementedError("prefix_embeds / encoder_embeds are not ported to "
                                   "repro_torch yet (ROADMAP.md §1 item 11)")
-    logits, aux = forward(cfg, params, batch["tokens"], remat=remat)
+    logits, aux = forward(cfg, params, batch["tokens"], moe_dispatch=moe_dispatch, remat=remat)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, torch.clamp_min(labels, 0).long()[..., None])[..., 0]
     loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_coef * aux
     return loss, {"nll": loss, "aux": aux}
 
 
@@ -252,7 +310,8 @@ def _stack_caches(layer_caches):
     return tree_map(lambda *xs: torch.stack(xs), *layer_caches)
 
 
-def prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat16):
+def prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat16,
+            moe_dispatch: str = "einsum"):
     """Batched prompt processing: one forward pass that returns
     (last_position_logits (B,1,V), filled_cache, next_pos), the same cache
     that stepping ``decode_step`` over the prompt fills."""
@@ -266,9 +325,9 @@ def prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat16):
     for gp, (tag, count) in zip(params["groups"], layer_groups(cfg)):
         layer_caches = []
         for i in range(count):
-            x, lc = _apply_layer(cfg, _layer(gp, i), shared, x, positions, tag,
-                                 window=cfg.sliding_window, cache_len=cache_len,
-                                 cache_dtype=cache_dtype)
+            x, lc, _ = _apply_layer(cfg, _layer(gp, i), shared, x, positions, tag,
+                                    window=cfg.sliding_window, cache_len=cache_len,
+                                    cache_dtype=cache_dtype, moe_dispatch=moe_dispatch)
             layer_caches.append(lc)
         caches.append(_stack_caches(layer_caches))
     return _logits(cfg, params, x[:, -1:]), {"groups": caches}, S
@@ -300,7 +359,7 @@ def init_cache(cfg, params, batch: int, cache_len: int, *, dtype=torch.bfloat16,
     return {"groups": caches}
 
 
-def _decode_layer(cfg, lp, shared, x, lcache, pos, tag):
+def _decode_layer(cfg, lp, shared, x, lcache, pos, tag, moe_dispatch):
     kind, _ = tag
     rs = _residual_scale(cfg)
     if kind == "mamba2":
@@ -322,13 +381,15 @@ def _decode_layer(cfg, lp, shared, x, lcache, pos, tag):
     a, new_cache = attn.attention_decode(ap, cfg, h, lcache, pos, window=cfg.serve_window)
     x = x + a * rs
     h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
-    y = apply_mlp(lp["mlp"], h, cfg.activation)
+    y, _ = _ffn(cfg, lp, h, tag, moe_dispatch)
     return x + y * rs, new_cache
 
 
-def decode_step(cfg, params, cache, token, pos: int):
+def decode_step(cfg, params, cache, token, pos: int, *, moe_dispatch: str = "einsum"):
     """token (B, 1) int; pos the token's position (int).  Returns
-    (logits (B,1,V), new cache); the input cache is not modified."""
+    (logits (B,1,V), new cache); the input cache is not modified.  An MoE
+    layer routes the step's B tokens as one group (capacity B: nothing
+    drops) and runs every expert over its B slots, as the reference does."""
     check_supported(cfg)
     params = cast_params(cfg, params)
     x = _embed(cfg, params, token)
@@ -338,7 +399,8 @@ def decode_step(cfg, params, cache, token, pos: int):
         gc = cache["groups"][gi]
         layer_caches = []
         for i in range(count):
-            x, nc = _decode_layer(cfg, _layer(gp, i), shared, x, _layer(gc, i), pos, tag)
+            x, nc = _decode_layer(cfg, _layer(gp, i), shared, x, _layer(gc, i), pos, tag,
+                                  moe_dispatch)
             layer_caches.append(nc)
         new_groups.append(_stack_caches(layer_caches))
     new_cache = dict(cache)

@@ -4,9 +4,11 @@
 ``ARCH_IDS`` lists every architecture of the reference's zoo; the port
 has the ones in ``PORTED`` (``repro_torch/configs/<id>.py``): minicpm_2b
 trains and serves (dense MHA with muP-style scales and tied
-embeddings), starcoder2_3b trains and serves, rwkv6_3b and zamba2_7b
-(Mamba2 with a shared attention block) serve (and train on the CPU
-only, until the linear_scan kernel has a backward).
+embeddings), starcoder2_3b trains and serves, granite_moe_3b_a800m and
+qwen3_moe_30b_a3b (Mixture-of-Experts, qwen3 with per-head q/k
+RMSNorm) serve and train, rwkv6_3b and zamba2_7b (Mamba2 with a shared
+attention block) serve (and train on the CPU only, until the
+linear_scan kernel has a backward).
 The others raise ``NotImplementedError``: ROADMAP.md §1 item 11 queues
 them.
 """
@@ -26,7 +28,8 @@ ARCH_IDS = (
     "rwkv6_3b",
     "whisper_small",
 )
-PORTED = ("minicpm_2b", "starcoder2_3b", "rwkv6_3b", "zamba2_7b")
+PORTED = ("minicpm_2b", "starcoder2_3b", "rwkv6_3b", "zamba2_7b", "granite_moe_3b_a800m",
+          "qwen3_moe_30b_a3b")
 
 
 def normalize(arch: str) -> str:

@@ -507,17 +507,17 @@ def test_zamba2_trains_on_the_cpu_and_serve_cli(monkeypatch, capsys):
 
 def test_backward_refuses_head_dim_112_and_the_rest_still_raises():
     """The forward kernel takes head_dim 112, its backward refuses it in
-    Python (before any launch); MoE, MLA and qk-norm still raise."""
+    Python (before any launch); MLA and parallel blocks still raise."""
     assert 112 in fa_ops.HEAD_DIMS and 112 not in fa_ops.BWD_HEAD_DIMS
     fa_ops._check_launch(torch.zeros(1, 1, 1, 112))
     with pytest.raises(ValueError, match="item 4b"):
         fa_ops._check_launch(torch.zeros(1, 1, 1, 112), backward=True)
     cfg = registry.get_smoke_config(ARCH)
-    for bad in (dict(qk_norm=True), dict(parallel_block=True), dict(attention="mla")):
+    for bad in (dict(parallel_block=True), dict(attention="mla")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tdec.check_supported(cfg.replace(**bad))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_config("granite_moe_3b_a800m")
+        registry.get_config("minicpm3_4b")
 
 
 def test_plain_attention_at_head_dim_112():

@@ -464,7 +464,8 @@ def assert_same_config(t, j):
 
 
 def test_registry_serves_the_ported_archs_only():
-    assert set(registry.PORTED) == set(ARCHS) | {"zamba2_7b"}
+    assert set(registry.PORTED) == set(ARCHS) | {"zamba2_7b", "granite_moe_3b_a800m",
+                                                  "qwen3_moe_30b_a3b"}
     for arch in registry.PORTED:
         assert_same_config(registry.get_config(arch), jget_config(arch))
         assert_same_config(registry.get_smoke_config(arch.replace("_", "-")),
@@ -475,7 +476,8 @@ def test_registry_serves_the_ported_archs_only():
     with pytest.raises(ValueError):
         registry.get_config("gpt2")
     cfg = registry.get_smoke_config("starcoder2_3b")
-    for bad in (dict(qk_norm=True), dict(parallel_block=True), dict(attention="mla")):
+    tdec.check_supported(cfg.replace(qk_norm=True))
+    for bad in (dict(parallel_block=True), dict(attention="mla")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tdec.check_supported(cfg.replace(**bad))
 

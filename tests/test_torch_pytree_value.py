@@ -33,6 +33,30 @@ def to_jax(tree):
 
 
 class TestTree:
+    def test_flatten_and_map_free_the_tree_without_the_cycle_collector(self):
+        """tree_flatten, tree_unflatten and tree_map keep no reference to a
+        tree once their results are dropped: a full-width model's
+        parameters must go when its last name does, not at the cyclic
+        collector's next pass (chip_smoke.py's serve phases draw 13 GB and
+        then 61 GB trees one after another)."""
+        import gc
+        import weakref
+        tree = {"a": [torch.ones(3), {"b": torch.zeros(2), "n": None}], "c": (torch.ones(1),)}
+        refs = [weakref.ref(x) for x in tpt.tree_leaves(tree)]
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            gc.collect()
+            leaves, treedef = tpt.tree_flatten(tree)
+            copy = tpt.tree_unflatten(treedef, leaves)
+            doubled = tpt.tree_map(lambda x: x * 2, copy)
+            assert float(doubled["c"][0]) == 2.0
+            del tree, leaves, copy, doubled
+            assert all(r() is None for r in refs)
+        finally:
+            if enabled:
+                gc.enable()
+
     def test_cnn_flatten_order_matches_jax(self):
         """Leaf i of the reference's CNN tree holds the value i: the port's
         flatten must hand the leaves back in that order."""
