@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of repro_torch on one NVIDIA H100: build the CUDA kernels
-(the four TPU kernels' counterparts and the flash_attention backward),
+(the four TPU kernels' counterparts and the flash_attention and
+linear_scan backwards),
 hold each against its plain PyTorch version on the card, time them, and
 drive the port's main paths through their public entry points.
 
@@ -11,12 +12,12 @@ drive the port's main paths through their public entry points.
 
    then afl on the same federation (kernels grad_diff_norm, and
    topk_quant's device-side topk_int8 encode).
-2. The event runtime on the same federation, ``run(rounds=3,
-   mode="event")``: the sequential loop for vafl, afl and eaflm (21
+2. The event runtime on the same federation, ``run(rounds=2,
+   mode="event")``: the sequential loop for vafl, afl and eaflm (14
    events each), fedavg's round barrier, and vafl under
    ``scenario="mobile_fleet"`` (grad_diff_norm once per vafl event, the
    encode once per accepted upload); ``[event]`` lines.
-3. The batched engine on the same federation, ``run(rounds=3,
+3. The batched engine on the same federation, ``run(rounds=2,
    mode="event", engine="batched")``: vafl (full windows of 7), afl with
    a FedBuff buffer of 4, eaflm in windows of 3, fedasync, vafl under
    ``mobile_fleet`` and vafl with the dense int8 codec (grad_diff_norm
@@ -76,8 +77,9 @@ drive the port's main paths through their public entry points.
 10. ``[train]``: the flash_attention backward kernel against the plain
    backward (autograd through ``ref.gqa_attention``) in fp32 and bf16,
    with and without a window, at starcoder2_3b's and minicpm_2b's
-   attention shapes, timed beside its bound and SDPA's autograd
-   backward; then minicpm_2b at its published width with the depth cut
+   attention shapes and at zamba2_7b's head_dim of 112, timed beside its
+   bound and SDPA's autograd backward; then minicpm_2b at its published
+   width with the depth cut
    to 2 layers (B 4 x S 1024, bf16 compute, fp32 params): step 1's loss
    and every leaf's gradient through the kernels against the plain
    attention route on the card, ``make_train_step`` for 5 steps on one
@@ -85,7 +87,16 @@ drive the port's main paths through their public entry points.
    ``make_fl_train_step`` with P = 2 silos for vafl and afl (one
    grad_diff_norm launch a step), the gated collective on 2 spawned
    ranks (gloo, CUDA tensors) on the reference test's inputs, and the
-   federated LM example, afl against vafl.
+   federated LM example, afl against vafl; then rwkv6_3b (2 of 32
+   layers), zamba2_7b (its first 6 pattern entries: five Mamba2 layers
+   and a shared-attention invocation) and granite_moe_3b_a800m (2 of 32
+   layers) at their published widths: step 1's gradients through the
+   kernels against the plain routes on the card (autograd through
+   ``ref.recurrence`` and ``ref.gqa_attention``), leaf by leaf (granite
+   also at fp32 compute, with the routes' moved router choices), and
+   ``make_train_step`` for 5 steps on one repeated batch, the loss
+   falling and the linear_scan and flash_attention launches, forward and
+   backward, as many as the layer pattern and the checkpointing imply.
 11. Serving, ``repro_torch.launch.serve.serve``, for starcoder2_3b,
    rwkv6_3b, zamba2_7b, granite_moe_3b_a800m and qwen3_moe_30b_a3b at
    their full published configurations (random weights from a seed,
@@ -107,7 +118,10 @@ Run it from the root of a checkout:
 Before the main paths it counts the tensor-core instructions (HMMA,
 HGMMA) in each kernel's compiled functions (``cuobjdump -sass`` from
 nvcc's toolkit) and fails if a bf16 route of flash_attention, its
-backward or linear_scan has none.  It holds the topk_int8 encode
+backward or linear_scan has none.  Its ``[linear_scan]`` phase also
+holds the linear_scan backward kernel against its plain version at the
+[train] path's shapes (rwkv6_3b's per-dim form, zamba2_7b's per-head
+form; bf16 and fp32; with and without a state), timed beside its bound.  It holds the topk_int8 encode
 bit-exact against its plain route on the CNN's and the MLP's trees, on
 each side of the resident route's limit, at 2^24 + 123 elements, on a
 tie-heavy input and on one whose k-th magnitude is 0, and the
@@ -126,12 +140,16 @@ for the batched engine, ``round_scenario_launches``,
 ``fl_wire_launches``, ``fl_wire_child_launches``, ``figures_launches``
 and ``train_launches`` for the later paths; the ``flash_attention_bwd``
 row's ``launches`` are the [train] path's, its
-``train_step_run_launches`` one 5-step ``make_train_step`` run's).
+``train_step_run_launches`` one 5-step ``make_train_step`` run's; a
+``linear_scan_bwd`` row per backward case and the hd-112
+``flash_attention_bwd`` rows follow, each with the [train] path's
+launches and each family's 5-step run's).
 Before the [train] path it holds step 1 of the full-width train step
 through the kernels against the plain attention route, leaf by leaf,
 with the forward and the backward each swapped alone; those launches
-are a comparison's and fall outside every path's counts.  It imports
-neither JAX nor the JAX package.
+are a comparison's and fall outside every path's counts, as are the
+families' step-1 comparisons.  It imports neither JAX nor the JAX
+package.
 """
 from __future__ import annotations
 
@@ -197,6 +215,16 @@ LS_CASES = [(4, 2048, 40, 64, 64, "rwkv", "model", False),
             (4, 2048, 112, 64, 64, "mamba-head", "spread", True)]
 LS_TOL = {"y": 3e-2, "state": 2e-4}
 LS_CHUNK = 32                    # rwkv6_3b's chunk of the TPU kernel's chunked form
+# linear_scan backward cases: (B, S, H, K, V, form, dtype, with state) at
+# the [train] path's shapes: rwkv6_3b's per-dim form with u, and
+# zamba2_7b's per-head Mamba2 form (C and B broadcast over 112 heads), at
+# TRAIN's batch of 4 x 1024; "with state": an initial state and a final
+# state's gradient
+LS_BWD_CASES = [(4, 1024, 40, 64, 64, "rwkv", dt, st) for dt in ("bfloat16", "float32")
+                for st in (False, True)] + \
+               [(4, 1024, 112, 64, 64, "mamba-head", dt, st) for dt in ("bfloat16", "float32")
+                for st in (False, True)]
+LS_BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-4}   # of each gradient's scale
 # what each kernel route is built from (csrc/*.cu)
 DESIGN = {("flash_attention", "bfloat16"): "mma.sync m16n8k16 bf16, cp.async 2-stage K/V ring, "
                                            "128-query x 64-key tiles (8 warps x 16 rows), Q and P "
@@ -230,7 +258,14 @@ DESIGN = {("flash_attention", "bfloat16"): "mma.sync m16n8k16 bf16, cp.async 2-s
           ("flash_attention_bwd", "float32"): "three launches, no atomics: rowsum(dO o) a warp a "
                                               "row; dK, dV a 64-key tile walking its GQA group's "
                                               "heads in order; dQ a 64-query tile; fp32 FMA "
-                                              "64 x 64 tiles on the CUDA cores"}
+                                              "64 x 64 tiles on the CUDA cores",
+          "linear_scan_bwd": "the exact sequential recurrence with float64 states, products and "
+                             "sums on the CUDA cores, no atomics, three launches: bwd_forward "
+                             "rebuilds the state for dq (a block of 256 threads a (b, h), four "
+                             "threads a state row); bwd_reverse walks the state's gradient in 2 "
+                             "roles (rows: dk, dla, d_initial_state; columns: dv); sum_du sums "
+                             "du over b in order; 16 steps staged in shared memory a chunk; dla "
+                             "from the gated-linear-attention identity"}
 # the tensor-core functions of each bf16 route in the compiled library
 # (nvcc's names); each must hold HMMA or HGMMA instructions
 TC_FUNCS = {"flash_attention": ("flash_fwd_bf16",), "linear_scan": ("scan_bf16",),
@@ -751,6 +786,101 @@ def phase_linear_scan(rows: list):
     torch.cuda.empty_cache()
 
 
+def _linear_scan_bwd_ops(B, S, H, K, V) -> int:
+    """Operations of a chunked backward on the same terms as
+    ``_linear_scan_ops``: the forward's products recomputed, then per
+    chunk and (b, h) the score gradients dy v^T and their products with k
+    and q (the causal C x C triangle against V, then twice against K),
+    the scores' transpose against dy, and four C K V products (dq's
+    readout of the state, dk and dv against the state's gradient, that
+    gradient's update)."""
+    C = LS_CHUNK
+    tri = C * (C + 1) // 2
+    per_chunk = tri * (V + 2 * K + V) + 4 * C * K * V
+    return _linear_scan_ops(B, S, H, K, V) + 2 * per_chunk * B * H * -(-S // C)
+
+
+def phase_linear_scan_bwd(rows: list):
+    """The linear_scan backward kernel at the [train] path's shapes
+    (``LS_BWD_CASES``) against its plain version, ``ref.recurrence_bwd``,
+    on the same inputs: every gradient within ``LS_BWD_TOL`` of its
+    scale, a rerun bit-equal; timed beside its bound and the plain
+    backward (no single PyTorch call computes it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.linear_scan import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    names = ("dq", "dk", "dv", "dla", "du", "d_initial_state")
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    for B, S, H, K, V, form, dtype, with_state in LS_BWD_CASES:
+        dt = getattr(torch, dtype)
+        head = form == "mamba-head"
+        if head:     # C and B broadcast over the heads (head stride 0), -softplus(dt) a head
+            q, k = (draw(B, S, K).to(dt)[:, :, None].expand(B, S, H, K) for _ in range(2))
+            la = -F.softplus(draw(B, S, H))
+        else:        # rwkv6's -exp(w0 + lora) around w0 = -0.6, u
+            q, k = draw(B, S, H, K).to(dt), draw(B, S, H, K).to(dt)
+            la = -torch.exp(0.5 * draw(B, S, H, K) - 0.6)
+        v, dy = draw(B, S, H, V).to(dt), draw(B, S, H, V).to(dt)
+        u = draw(H, K) * 0.5 if not head else None
+        s0 = draw(B, H, K, V) if with_state else None
+        ds = draw(B, H, K, V) if with_state else None
+        cur = head
+        got = ops._launch_bwd(q, k, v, la, u, dy, ds, cur, s0)
+        again = ops._launch_bwd(q, k, v, la, u, dy, ds, cur, s0)
+        want = ref.recurrence_bwd(q, k, v, la, u, dy, ds, include_current=cur, initial_state=s0)
+        torch.cuda.synchronize()
+        case = (f"(B {B}, S {S}, H {H}, K {K}, V {V}) {'per-head (Mamba2)' if head else 'per-dim (RWKV6, u)'} "
+                f"form{', initial state and final-state gradient' if with_state else ''}, {dtype}")
+        errs = {}
+        for name, a, b, c in zip(names, got, want, again):
+            if b is None:
+                if a is not None:
+                    fail(f"linear_scan backward {case}: {name} returned where the plain has none")
+                continue
+            scale = float(b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            errs[name] = err / scale
+            if not (a.dtype == b.dtype and bool(torch.isfinite(a).all())
+                    and err <= LS_BWD_TOL[dtype] * scale):
+                fail(f"linear_scan backward {case}: {name} max abs err {err:.3g} beyond "
+                     f"{LS_BWD_TOL[dtype]} x its scale {scale:.3g}")
+            if not torch.equal(a, c):
+                fail(f"linear_scan backward {case}: two launches on one input differ in {name}")
+        say(f"[linear_scan] backward {case}: max abs err / scale "
+            + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f" (limit {LS_BWD_TOL[dtype]}), rerun bit-equal")
+        esize = v.element_size()
+        nbytes = (B * S * H * V * 3 * esize                     # v, dy read; dv written
+                  + B * S * K * 4 * esize * (1 if head else H)  # q, k read; dq, dk written
+                  + B * S * H * (1 if head else K) * 4 * 2      # la read, dla written
+                  + (H * K * 4 * 2 if u is not None else 0)     # u read, du written
+                  + (B * H * K * V * 4 * 3 if with_state else 0))   # s0, dS read; d_s0 written
+        nops = _linear_scan_bwd_ops(B, S, H, K, V)
+        bms, bby = bound_ms(nbytes, nops, TF32_OPS_PER_S)
+        ms = cuda_ms(lambda: ops._launch_bwd(q, k, v, la, u, dy, ds, cur, s0), 10, 2)
+        plain = cuda_ms(lambda: ref.recurrence_bwd(q, k, v, la, u, dy, ds, include_current=cur,
+                                                   initial_state=s0), 1, 1)
+        say(f"[linear_scan] backward {case}: {ms:.4f} ms, bound {bms:.4f} ms ({bby}, "
+            f"{nbytes / 1e9:.4f} GB), {ms / bms:.1f} x the bound; plain {plain:.2f} ms")
+        rows.append({
+            "name": "linear_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/linear_scan_bwd.cu",
+            "replaces": "src/repro/kernels/linear_scan/kernel.py:78",
+            "replaces_note": "the gradient of that forward-only TPU kernel's function; the "
+                             "reference trains through its chunked jnp recurrence",
+            "shape": [B, S, H, K, V], "form": form, "dtype": dtype, "state": with_state,
+            "design": DESIGN["linear_scan_bwd"], "max_abs_err": max(errs.values()),
+            "max_abs_err_is": "of each gradient's scale", "tol": LS_BWD_TOL[dtype],
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": bby,
+            "bound_bytes": nbytes, "bound_ops": nops, "library_ms": None, "library_call": None})
+        del q, k, v, la, dy, s0, ds, got, again, want
+        torch.cuda.empty_cache()
+
+
 def _reset_launches():
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.grad_diff_norm import ops as gd
@@ -758,7 +888,7 @@ def _reset_launches():
     from repro_torch.kernels.topk_quant import ops as tq
     counters = {"grad_diff_norm": (gd, "launches"), "topk_quant": (tq, "launches"),
                 "flash_attention": (fa, "launches"), "flash_attention_bwd": (fa, "bwd_launches"),
-                "linear_scan": (ls, "launches")}
+                "linear_scan": (ls, "launches"), "linear_scan_bwd": (ls, "bwd_launches")}
     for m, attr in counters.values():
         setattr(m, attr, 0)
     return lambda: {name: getattr(m, attr) for name, (m, attr) in counters.items()}
@@ -1155,6 +1285,7 @@ def phase_main_path():
 
 EVENT_RUNS = [("vafl", None), ("afl", None), ("eaflm", None), ("fedavg", None),
               ("vafl", "mobile_fleet")]
+EVENT_ROUNDS = 2                 # rounds of each [event] and [batched] run (cut from 3)
 
 
 def busy_share(fn) -> tuple:
@@ -1238,9 +1369,9 @@ def event_breakdown(fed) -> dict:
 
 
 def phase_event_path():
-    """``Federation.run(rounds=3, mode="event")`` on the main path's
-    federation: the sequential event loop for vafl, afl and eaflm (21
-    events each), fedavg's round barrier (3 rounds of 7 clients), and
+    """``Federation.run(rounds=EVENT_ROUNDS, mode="event")`` on the main
+    path's federation: the sequential event loop for vafl, afl and eaflm
+    (14 events each), fedavg's round barrier (2 rounds of 7 clients), and
     vafl again under ``scenario="mobile_fleet"``.  grad_diff_norm must
     launch once per vafl event (a W = 1 call) and never otherwise, the
     topk_int8 encode once per accepted upload, and no serving kernel."""
@@ -1266,7 +1397,7 @@ def phase_event_path():
         g0, t0 = gd_ops.launches, tq_ops.launches
         torch.cuda.synchronize()
         h0 = time.perf_counter()
-        res = fed.run(rounds=3, mode="event", algorithm=alg, scenario=scenario)
+        res = fed.run(rounds=EVENT_ROUNDS, mode="event", algorithm=alg, scenario=scenario)
         torch.cuda.synchronize()
         secs = time.perf_counter() - h0
         gd, tq = gd_ops.launches - g0, tq_ops.launches - t0
@@ -1281,7 +1412,7 @@ def phase_event_path():
                 fail(f"event {name}: accuracy {r.global_acc} out of [0, 1]")
         steps = res.records[-1].round         # events, or barrier rounds for fedavg
         unit = "round" if alg == "fedavg" else "event"
-        if steps != (3 if alg == "fedavg" else 3 * len(fed.data.counts)):
+        if steps != (EVENT_ROUNDS if alg == "fedavg" else EVENT_ROUNDS * len(fed.data.counts)):
             fail(f"event {name}: the last record is at {unit} {steps}")
         say(f"[event] {name}: {steps} {unit}s, model_uploads {res.comm.model_uploads}, "
             f"scalar_reports {res.comm.scalar_reports}, uplink bytes {res.comm.uplink_bytes}, "
@@ -1341,7 +1472,7 @@ def _windows(events: int, clients: int, max_batch: int) -> int:
 
 
 def _run_batched(fed, name, kw, seen):
-    """One batched run of 3 rounds, checked; returns (result, seconds,
+    """One batched run of EVENT_ROUNDS rounds, checked; returns (result, seconds,
     grad_diff_norm launches, encode launches, windows)."""
     import torch
     from repro_torch.common.pytree import tree_leaves
@@ -1350,12 +1481,12 @@ def _run_batched(fed, name, kw, seen):
     g0, t0 = gd_ops.launches, tq_ops.launches
     torch.cuda.synchronize()
     h0 = time.perf_counter()
-    res = fed.run(rounds=3, mode="event", engine="batched", **kw)
+    res = fed.run(rounds=EVENT_ROUNDS, mode="event", engine="batched", **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - h0
     gd, tq = gd_ops.launches - g0, tq_ops.launches - t0
     n = len(fed.data.counts)
-    events = 3 * n
+    events = EVENT_ROUNDS * n
     windows = _windows(events, n, kw.get("max_batch", 0))
     if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(seen["params"])):
         fail(f"batched {name}: non-finite global parameters")
@@ -1447,7 +1578,7 @@ def phase_scale():
 
 
 def phase_batched_path(seq_vafl):
-    """``Federation.run(rounds=3, mode="event", engine="batched")`` on the
+    """``Federation.run(rounds=EVENT_ROUNDS, mode="event", engine="batched")`` on the
     main path's federation (``BATCHED_RUNS``), vafl at max_batch=1,
     buffer_size=1 held bit for bit against the event phase's sequential
     vafl, then the N = 256 federation (``phase_scale``).  grad_diff_norm
@@ -1499,7 +1630,7 @@ def phase_batched_path(seq_vafl):
              f"events' {seq_kernels}: its local SGD is not one batched computation")
     scale = phase_scale()
     return ((counts["grad_diff_norm"], counts["topk_quant"]),
-            {name: (r[1], r[4], 3 * len(fed.data.counts)) for name, r in runs.items()},
+            {name: (r[1], r[4], EVENT_ROUNDS * len(fed.data.counts)) for name, r in runs.items()},
             share, scale)
 
 
@@ -2624,16 +2755,19 @@ TRAIN_CUT = dict(num_layers=2)              # minicpm_2b's 40 layers cut to 2 (r
 TRAIN = dict(batch=4, seq=1024, steps=5, lr=1e-3)   # bf16 compute, fp32 params
 FL_TRAIN = dict(pods=2, batch_per_pod=2, steps=5)
 # backward cases: (B, S, H, KV, hd, window, dtype) at starcoder2_3b's and
-# minicpm_2b's attention shapes, each dtype with and without a window
+# minicpm_2b's attention shapes, each dtype with and without a window;
+# then zamba2_7b's shared attention in the [train] path (hd 112, no GQA,
+# causal), each dtype
 FA_BWD_CASES = [(4, 2048, 24, 2, 128, None, "bfloat16"), (4, 2048, 24, 2, 128, 256, "bfloat16"),
                 (4, 2048, 24, 2, 128, None, "float32"), (4, 2048, 24, 2, 128, 256, "float32"),
                 (4, 1024, 36, 36, 64, None, "bfloat16"), (4, 1024, 36, 36, 64, 128, "bfloat16"),
-                (4, 1024, 36, 36, 64, None, "float32"), (4, 1024, 36, 36, 64, 128, "float32")]
+                (4, 1024, 36, 36, 64, None, "float32"), (4, 1024, 36, 36, 64, 128, "float32"),
+                (4, 1024, 32, 32, 112, None, "bfloat16"), (4, 1024, 32, 32, 112, None, "float32")]
 FA_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # of each gradient's scale
 # the first form's times of the cases above (fp32 FMA tiles for both
 # dtypes; PERF.md §6, H100 80GB HBM3, 700 W), quoted on each case's text
 # line and nowhere in the kernels line, which holds this run's numbers
-FA_BWD_OLD_MS = [21.8940, 5.3066, 22.3555, 5.3772, 3.2310, 1.1166, 3.2471, 1.1396]
+FA_BWD_OLD_MS = [21.8940, 5.3066, 22.3555, 5.3772, 3.2310, 1.1166, 3.2471, 1.1396, None, None]
 # step 1, kernel route vs plain route at bf16 compute, of each leaf's
 # scale: at most this, and at most the run's bf16 floor, the plain
 # route's own largest leaf gap to the same step at fp32 compute.  The
@@ -2643,6 +2777,26 @@ FA_BWD_OLD_MS = [21.8940, 5.3066, 22.3555, 5.3772, 3.2310, 1.1166, 3.2471, 1.139
 # gradient moves wq, wk and wv by their whole scale
 TRAIN_GRAD_TOL = 2e-2
 TRAIN_CHECK_SEEDS = (0, 1, 2)
+# the recurrent and MoE families in [train], each at its published width
+# with its depth cut (reduced): rwkv6_3b and granite_moe_3b_a800m to 2 of
+# 32 layers (TRAIN_CUT), zamba2_7b to its first 6 pattern entries (five
+# Mamba2 layers and one shared-attention invocation)
+TRAIN_FAMILIES = ("rwkv6_3b", "zamba2_7b", "granite_moe_3b_a800m")
+ZAMBA2_TRAIN_DEPTH = 6
+# Step 1 of each family through the kernels against the plain routes.
+# At fp32 compute, at the [train] cut, within TRAIN_FP32_GRAD_TOL of each
+# leaf's scale (the routes' sums run in other orders).  At bf16 compute
+# the random-weight stacks at the cut are no yardstick: the plain route's
+# own bf16 step is 0.25-1.08 of some leaf's scale from its fp32 step
+# (rwkv6 at 2 layers, zamba2 at 6, granite at 1; PERF.md §6), so
+# bf16 is held on the cut below (TRAIN_BF16_CUT), within
+# min(TRAIN_GRAD_TOL, that cut's bf16 floor); granite's with the plain
+# fp32 step's router choices replayed in both bf16 steps, since a moved
+# choice changes two experts' gradients by a token's share, and the
+# choices each route would have made printed beside them.
+TRAIN_FP32_GRAD_TOL = 1e-3
+TRAIN_BF16_CUT = {"rwkv6_3b": ("rwkv6",), "zamba2_7b": ("mamba2", "shared_attn"),
+                  "granite_moe_3b_a800m": ("attn",)}
 # the reference test's eight pods (tests/test_distributed.py), cut to two
 # ranks twice: pods (4, 5), both above the mean, and pods (0, 5)
 GATED_VALS = [0.0, 0.0, 0.0, 0.0, 9.0, 9.0, 0.0, 0.0]
@@ -2698,7 +2852,8 @@ def phase_flash_backward(rows: list):
             del qt, kt, vt, ot
         ms = cuda_ms(lambda: ops._launch_bwd(q, k, v, o, do, lse, window), 20, 3)
         chunks = ops.bwd_plan(B, S, H, KV, sms) if dtype == "bfloat16" else 1
-        say(f"[train] flash_attention backward {case}: {ms:.4f} ms (first form: {old_ms} ms), "
+        say(f"[train] flash_attention backward {case}: {ms:.4f} ms "
+            + (f"(first form: {old_ms} ms), " if old_ms is not None else "(no first form), ")
             + (f"{ms / lib:.2f} x SDPA's autograd backward ({lib:.4f} ms), " if lib is not None
                else "no SDPA call takes a window, ")
             + f"{nops / ms / 1e9:.1f} TFLOP/s of the 5-product work, {chunks} chunk(s) a GQA "
@@ -2749,6 +2904,7 @@ def _train_run(cfg) -> dict:
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.grad_diff_norm import ops as gd
+    from repro_torch.kernels.linear_scan import ops as ls
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import decoder
     step_fn, opt_init = make_train_step(cfg, lr=TRAIN["lr"])
@@ -2756,7 +2912,10 @@ def _train_run(cfg) -> dict:
     opt_state = opt_init(params)
     batch = _train_batch(cfg)
     torch.cuda.synchronize()
-    before = (fa.launches, fa.bwd_launches, gd.launches)
+    names = ("flash_attention", "flash_attention_bwd", "grad_diff_norm", "linear_scan",
+             "linear_scan_bwd")
+    counters = lambda: (fa.launches, fa.bwd_launches, gd.launches, ls.launches, ls.bwd_launches)
+    before = counters()
     losses, norms, secs = [], [], []
     for s in range(TRAIN["steps"]):
         h0 = time.perf_counter()
@@ -2764,9 +2923,7 @@ def _train_run(cfg) -> dict:
         losses.append(float(info["loss"]))
         secs.append(time.perf_counter() - h0)
         norms.append(float(info["grad_norm"]))
-    counts = {name: n - b for name, n, b in zip(
-        ("flash_attention", "flash_attention_bwd", "grad_diff_norm"),
-        (fa.launches, fa.bwd_launches, gd.launches), before)}
+    counts = {name: n - b for name, n, b in zip(names, counters(), before)}
     return {"losses": losses, "grad_norms": norms, "step_s": secs, "params": params,
             "counts": counts}
 
@@ -3137,6 +3294,227 @@ def phase_train() -> dict:
             "example_s": ex_s, "ccr": c}
 
 
+def _family_cfg(arch: str, pattern=None):
+    """``arch`` at its published width, its depth cut to ``pattern`` (the
+    [train] cut when None: zamba2_7b's first ``ZAMBA2_TRAIN_DEPTH``
+    pattern entries, the others' first ``TRAIN_CUT`` layers)."""
+    from repro_torch.models.registry import get_config
+    cfg = get_config(arch)
+    if pattern is None:
+        depth = ZAMBA2_TRAIN_DEPTH if arch == "zamba2_7b" else TRAIN_CUT["num_layers"]
+        pattern = cfg.pattern()[:depth]
+    return cfg.replace(num_layers=len(pattern), layer_pattern=tuple(pattern))
+
+
+def _path_launches(cfg, steps: int) -> dict:
+    """The kernel launches ``steps`` train steps of ``cfg`` make: each
+    layer checkpointed, so two forwards and one backward a layer a step,
+    linear_scan's for an RWKV6 or Mamba2 layer, flash_attention's for an
+    attention layer or shared-attention invocation."""
+    pat = cfg.pattern()
+    n_ls = sum(kind in ("rwkv6", "mamba2") for kind in pat)
+    n_fa = sum(kind in ("attn", "shared_attn") for kind in pat)
+    return {"linear_scan": 2 * n_ls * steps, "linear_scan_bwd": n_ls * steps,
+            "flash_attention": 2 * n_fa * steps, "flash_attention_bwd": n_fa * steps}
+
+
+def _plain_routes():
+    """A context in which the model layers' scan and attention run through
+    their plain versions, autograd through ``ref.recurrence`` and
+    ``ref.gqa_attention`` (a comparison's route only)."""
+    from contextlib import ExitStack
+    from unittest import mock
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+    from repro_torch.kernels.linear_scan import ops as ls, ref as ls_ref
+
+    def scan(q, k, v, la, u=None, *, include_current=True, initial_state=None):
+        return ls_ref.recurrence(q, k, v, la, u, include_current=include_current,
+                                 initial_state=initial_state)
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(
+        fa, "gqa_flash_attention", lambda q, k, v, window=None: fa_ref.gqa_attention(q, k, v,
+                                                                                   window)))
+    stack.enter_context(mock.patch.object(ls, "recurrence", scan))
+    return stack
+
+
+def _family_step_one(cfg, plain: bool, routed=None, replay=None):
+    """Step 1's loss and gradients of ``cfg`` from seed 0 on the [train]
+    batch, through the kernels or the plain routes.  Each MoE call's own
+    router choices (T, top_k) are appended to ``routed``; with ``replay``
+    (one layer's choices) every MoE call routes by them instead."""
+    import torch
+    from contextlib import ExitStack
+    from unittest import mock
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import decoder, moe
+    params = decoder.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = _train_batch(cfg)
+    with ExitStack() as stack:
+        if plain:
+            stack.enter_context(_plain_routes())
+        if routed is not None:
+            route = moe._route
+
+            def recording(p, c, x2d):
+                w, ids, aux = route(p, c, x2d)
+                routed.append(ids.detach().clone())
+                return route(p, c, x2d, replay) if replay is not None else (w, ids, aux)
+            stack.enter_context(mock.patch.object(moe, "_route", recording))
+        out = value_and_grad(lambda p, b: decoder.loss_fn(cfg, p, b), params, batch)
+    del params
+    return out
+
+
+def _moved_pairs(a: list, b: list, layers: int) -> list:
+    """(token, expert) pairs routed on one route and not the other, each
+    of the first ``layers`` MoE layers (the forward's calls; the
+    checkpoints' recomputations follow them)."""
+    import torch.nn.functional as F
+    out = []
+    for x, y in zip(a[:layers], b[:layers]):
+        E = int(max(x.max(), y.max())) + 1
+        out.append(int((F.one_hot(x, E).sum(1) - F.one_hot(y, E).sum(1)).abs().sum()) // 2)
+    return out
+
+
+def _family_gaps(arch, cfg, kern, plain, fp32, bar_fixed=None) -> dict:
+    """Check step 1 through the kernels (``kern``) against the plain
+    routes (``plain``), both (loss, grads): every leaf nonzero and finite,
+    the losses within 1e-2, the worst leaf within ``bar_fixed`` or, given
+    the plain route at fp32 compute (``fp32``), within min(TRAIN_GRAD_TOL,
+    its bf16 floor); print the leaves."""
+    import torch
+    from repro_torch.common.pytree import tree_leaves
+    (loss_k, gk), (loss_p, gp) = kern, plain
+    names = _leaf_names(gk)
+    for name, g in zip(names, tree_leaves(gk)):
+        if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0:
+            fail(f"[train] {arch}: parameter leaf {name} {tuple(g.shape)} got a zero or "
+                 f"non-finite gradient through the kernels")
+    if abs(float(loss_k) - float(loss_p)) > 1e-2 * abs(float(loss_p)):
+        fail(f"[train] {arch}: step 1 loss {float(loss_k)} through the kernels, "
+             f"{float(loss_p)} plain")
+    per_leaf = _leaf_gaps(gk, gp)
+    err, name = _worst(per_leaf, names)
+    floor = None
+    if fp32 is not None:
+        floor = _worst(_leaf_gaps(gp, fp32[1]), names)[0]
+    bar = bar_fixed if bar_fixed is not None else min(TRAIN_GRAD_TOL, floor)
+    say(f"[train] {arch} step 1, {cfg.compute_dtype} compute, pattern {list(cfg.pattern())}: "
+        f"{len(names)} leaves ({sum(x.numel() for x in tree_leaves(gk))} parameters), every "
+        f"gradient nonzero and finite; loss {float(loss_k):.6f} through the kernels, "
+        f"{float(loss_p):.6f} through the plain routes; worst leaf gap {err:.4g} of its scale "
+        f"({name}); limit {bar:.4g}"
+        + (f" = min({TRAIN_GRAD_TOL}, bf16 floor {floor:.4g}, the plain route's own largest "
+           f"gap to fp32 compute)" if bar_fixed is None else "")
+        + "; per leaf: " + "; ".join(f"{n} {e:.3g}" for n, (e, *_) in zip(names, per_leaf)))
+    if err > bar:
+        fail(f"[train] {arch}: leaf {name}: kernel vs plain routes {err:.3g} of its gradient's "
+             f"scale, beyond {bar:.3g}")
+    return {"worst": err, "leaf": name, "floor": floor, "bar": bar,
+            "loss_kernels": float(loss_k), "loss_plain": float(loss_p)}
+
+
+def phase_train_families_check() -> dict:
+    """Step 1 of each ``TRAIN_FAMILIES`` cell through the kernels against
+    the same step through the plain routes on the card, leaf by leaf: at
+    fp32 compute at the [train] cut within TRAIN_FP32_GRAD_TOL, and at
+    bf16 compute on ``TRAIN_BF16_CUT`` within min(TRAIN_GRAD_TOL, the bf16
+    floor); granite's moved router choices printed, and at bf16 the plain
+    fp32 step's choices replayed in both bf16 steps.  A comparison: it
+    runs before the [train] path's counts are reset."""
+    import torch
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        moe = arch == "granite_moe_3b_a800m"
+        cfg = _family_cfg(arch).replace(compute_dtype="float32")
+        rk, rp = ([], []) if moe else (None, None)
+        kern = _family_step_one(cfg, False, rk)
+        plain = _family_step_one(cfg, True, rp)
+        out[arch] = {"fp32": _family_gaps(arch, cfg, kern, plain, None, TRAIN_FP32_GRAD_TOL)}
+        if moe:
+            moved = _moved_pairs(rk, rp, cfg.num_layers)
+            say(f"[train] {arch} step 1, fp32 compute: (token, expert) pairs routed through "
+                f"the kernels and not the plain routes, a layer: {moved} of {rk[0].numel()}")
+            out[arch]["fp32_moved_pairs"] = moved
+        del kern, plain
+        torch.cuda.empty_cache()
+        cfg1 = _family_cfg(arch, TRAIN_BF16_CUT[arch])
+        replay = None
+        rf, rk, rp = ([], [], []) if moe else (None, None, None)
+        fp32 = _family_step_one(cfg1.replace(compute_dtype="float32"), True, rf)
+        if moe:
+            replay = rf[0]
+        kern = _family_step_one(cfg1, False, rk, replay)
+        plain = _family_step_one(cfg1, True, rp, replay)
+        if moe:
+            moved = {"kernels' own - replayed": _moved_pairs(rk, [replay], 1),
+                     "plain's own - replayed": _moved_pairs(rp, [replay], 1)}
+            say(f"[train] {arch} step 1, bf16 compute, pattern {list(cfg1.pattern())}: the "
+                f"plain fp32 step's router choices replayed in both bf16 steps; (token, expert) "
+                f"pairs each bf16 step would have routed otherwise: {moved} of "
+                f"{replay.numel()}")
+            out[arch]["bf16_moved_pairs"] = moved
+        out[arch]["bf16"] = _family_gaps(arch, cfg1, kern, plain, fp32)
+        del kern, plain, fp32
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_families() -> dict:
+    """``make_train_step`` for TRAIN["steps"] steps on one repeated batch
+    for each ``TRAIN_FAMILIES`` cell: the loss falls, and the scan and
+    attention kernels launch, forward and backward, as often as the
+    layer pattern and the checkpointing imply; granite's run twice from
+    one seed, bit-equal (its dispatch drops pairs at this width, whose
+    rows the scatter's backward shares)."""
+    import numpy as np
+    import torch
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.models.registry import get_config
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = _family_cfg(arch)
+        torch.cuda.reset_peak_memory_stats()
+        a = _train_run(cfg)
+        if not all(np.isfinite(a["losses"])) or not a["losses"][-1] < a["losses"][0]:
+            fail(f"[train] {arch}: the loss did not fall over {TRAIN['steps']} steps: "
+                 f"{a['losses']}")
+        want = _path_launches(cfg, TRAIN["steps"])
+        got = {k: a["counts"][k] for k in want}
+        if got != want:
+            fail(f"[train] {arch}: kernel launches {got}, the layer pattern implies {want}")
+        same = None
+        if arch == "granite_moe_3b_a800m":
+            b = _train_run(cfg)
+            same = a["losses"] == b["losses"] and all(
+                torch.equal(x, y) for x, y in zip(tree_leaves(a["params"]),
+                                                  tree_leaves(b["params"])))
+            if not same:
+                fail(f"[train] {arch}: two runs from one seed differ: losses {a['losses']} "
+                     f"and {b['losses']}")
+            del b
+        step_s = float(np.median(a["step_s"]))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        say(f"[train] {arch} at its published width (d_model {cfg.d_model}, vocab "
+            f"{cfg.vocab_size}), {cfg.compute_dtype} compute, {cfg.param_dtype} params; "
+            f"reduced: num_layers {get_config(arch).num_layers} -> {cfg.num_layers} (pattern "
+            f"{list(cfg.pattern())}); batch {TRAIN['batch']} x {TRAIN['seq']} tokens; "
+            f"make_train_step x {TRAIN['steps']}, lr {TRAIN['lr']}: losses "
+            f"{[round(x, 4) for x in a['losses']]}, grad norms "
+            f"{[round(x, 4) for x in a['grad_norms']]}"
+            + ("; two runs from one seed bit-equal" if same else "")
+            + f"; median {step_s:.4f} s a step, {TRAIN['batch'] * TRAIN['seq'] / step_s:.1f} "
+            f"tokens/s; launches {got} (as the pattern implies); peak device memory "
+            f"{peak:.2f} GB")
+        out[arch] = {"step_s": step_s, "counts": got, "losses": a["losses"], "peak_gb": peak}
+        del a
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (src/repro_torch is missing)")
@@ -3165,6 +3543,8 @@ def main() -> None:
     phase_encode(enc_rows)
     phase_flash_attention(fa_rows)
     phase_linear_scan(ls_rows)
+    ls_bwd_rows = []
+    phase_linear_scan_bwd(ls_bwd_rows)
     mark("kernels")
     (gd_launches, tq_launches), secs = phase_main_path()
     mark("main")
@@ -3202,12 +3582,15 @@ def main() -> None:
     fa_bwd_rows = []
     phase_flash_backward(fa_bwd_rows)
     train_check = phase_train_check()
+    fam_check = phase_train_families_check()
     read = _reset_launches()
     train = phase_train()
+    families = phase_train_families()
     tr_counts = read()                           # read just after the train path
     mark("train")
     if min(tr_counts["flash_attention"], tr_counts["flash_attention_bwd"],
-           tr_counts["grad_diff_norm"]) <= 0:
+           tr_counts["grad_diff_norm"], tr_counts["linear_scan"],
+           tr_counts["linear_scan_bwd"]) <= 0:
         fail(f"a kernel of the train path never launched: {tr_counts}")
     for what, counts in (("round-scenario", rs_counts), ("checkpoint", ck_counts),
                          ("obs", obs_counts), ("fl-serve", fs_counts), ("fl-wire", fw_counts)):
@@ -3216,7 +3599,8 @@ def main() -> None:
     for what, counts in (("round-scenario", rs_counts), ("checkpoint", ck_counts),
                          ("obs", obs_counts), ("fl-serve", fs_counts), ("fl-wire", fw_counts),
                          ("figures", fig_counts)):
-        if counts["flash_attention"] or counts["flash_attention_bwd"] or counts["linear_scan"]:
+        if (counts["flash_attention"] or counts["flash_attention_bwd"] or counts["linear_scan"]
+                or counts["linear_scan_bwd"]):
             fail(f"the {what} path launched an LLM kernel: {counts}")
     if fig_counts["grad_diff_norm"] <= 0:
         fail(f"the figures' vafl runs never launched grad_diff_norm: {fig_counts}")
@@ -3241,7 +3625,8 @@ def main() -> None:
     say("[time] phases (host seconds): " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 
-    for row in list(gd_rows.values()) + list(tq_rows.values()) + fa_rows + ls_rows + fa_bwd_rows:
+    for row in (list(gd_rows.values()) + list(tq_rows.values()) + fa_rows + ls_rows + ls_bwd_rows
+                + fa_bwd_rows):
         say("[time] " + json.dumps(row))
     for key, row in tree_rows.items():
         say("[time] " + json.dumps(dict(row, name="tree_grad_diff_sq_norm")))
@@ -3302,9 +3687,9 @@ def main() -> None:
     say(f"[time] main path seconds per round (3 rounds, host clock, synchronized): "
         f"vafl {secs['vafl'] / 3:.4f}, afl {secs['afl'] / 3:.4f}")
     say("[time] event path (host clock, synchronized): "
-        + ", ".join(f"{name} {t / (3 if name == 'fedavg' else 21):.4f} s per "
+        + ", ".join(f"{name} {t / (EVENT_ROUNDS if name == 'fedavg' else 7 * EVENT_ROUNDS):.4f} s per "
                     f"{'round' if name == 'fedavg' else 'event'} "
-                    f"({(3 if name == 'fedavg' else 21) / t:.3f}/s)"
+                    f"({(EVENT_ROUNDS if name == 'fedavg' else 7 * EVENT_ROUNDS) / t:.3f}/s)"
                     for name, t in ev_secs.items())
         + f"; device busy {ev_busy:.1%} of a profiled vafl event run")
     say("[time] batched path (host clock, synchronized): "
@@ -3375,6 +3760,20 @@ def main() -> None:
                     starcoder2_library_ms=bwd_sc["library_ms"])
     main_gd["train_launches"] = tr_counts["grad_diff_norm"]
     main_fa["train_launches"] = tr_counts["flash_attention"]
+    main_ls["train_launches"] = tr_counts["linear_scan"]
+    # the rows of this slice's backward kernels: every linear_scan_bwd case
+    # and the hd-112 attention backward, each with the [train] path's
+    # launches (and each family's 5-step run's beside them)
+    fam_launches = {arch: f["counts"] for arch, f in families.items()}
+    bwd_rows = ([dict(r, launches=tr_counts["linear_scan_bwd"],
+                      train_step_run_launches={a: c["linear_scan_bwd"]
+                                               for a, c in fam_launches.items()})
+                 for r in ls_bwd_rows]
+                + [dict(r, launches=tr_counts["flash_attention_bwd"],
+                        tensor_core_instructions=sass["flash_attention_bwd"],
+                        train_step_run_launches={a: c["flash_attention_bwd"]
+                                                 for a, c in fam_launches.items()})
+                   for r in fa_bwd_rows if r["shape"][4] == 112])
     say(f"[time] train (host clock, synchronized): make_train_step minicpm_2b at full width, "
         f"2 layers, {TRAIN['batch']} x {TRAIN['seq']} tokens: {train['step_s']:.4f} s a step, "
         f"{train['tok_s']:.1f} tokens/s; make_fl_train_step P = {FL_TRAIN['pods']}: "
@@ -3385,7 +3784,14 @@ def main() -> None:
         f"SDPA backward {bwd_main['library_ms']:.4f}, {bwd_main['x_library']:.2f} x), "
         f"{bwd_sc['ms']:.4f} ms at {bwd_sc['shape']} (bound {bwd_sc['bound_ms']:.4f}, SDPA "
         f"backward {bwd_sc['library_ms']:.4f}, {bwd_sc['x_library']:.2f} x)")
-    say(json.dumps({"kernels": [main_gd, main_tq, main_fa, main_ls, main_bwd]}))
+    say("[time] train families (host clock, synchronized): " + ", ".join(
+        f"{arch} {f['step_s']:.4f} s a step ({TRAIN['batch'] * TRAIN['seq'] / f['step_s']:.1f} "
+        f"tokens/s, peak {f['peak_gb']:.2f} GB)" for arch, f in families.items())
+        + "; step 1 worst leaf gap through the kernels: " + ", ".join(
+            f"{arch} fp32 {c['fp32']['worst']:.4g} (limit {c['fp32']['bar']:.4g}), bf16 "
+            f"{c['bf16']['worst']:.4g} (limit {c['bf16']['bar']:.4g})"
+            for arch, c in fam_check.items()))
+    say(json.dumps({"kernels": [main_gd, main_tq, main_fa, main_ls, main_bwd] + bwd_rows}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -62,7 +62,12 @@
 //     MN-major operand.
 //  3. Shared memory holds bf16: six 64-row tiles, 100,352 bytes at
 //     D = 128 (two blocks an SM), 51,200 at D = 64 (three, as registers
-//     allow).
+//     allow).  D = 112 (zamba2_7b's shared attention) rows are 224 bytes,
+//     which the 128-byte swizzle does not tile: its tiles are D = 128's,
+//     the last two 16-byte chunks of every row zero-filled by the copy.
+//     The score products take 7 k-steps, the 112 columns alone; the
+//     gradient products run at N = 128 over the zero columns (14 % more
+//     of their products), whose outputs are zeros and are not stored.
 //  4. Parallelism under GQA: the query heads of a group are split over
 //     `chunks` blocks (the wrapper chooses the fewest that give about two
 //     waves); each chunk writes an fp32 partial, which sum_chunks adds in
@@ -429,6 +434,7 @@ int dispatch(const Args& a, int hd, cudaStream_t s) {
   switch (hd) {
     case 32: return launch<T, 32>(a, s);
     case 64: return launch<T, 64>(a, s);
+    case 112: return launch<T, 112>(a, s);
     case 128: return launch<T, 128>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -457,6 +463,14 @@ struct BArgs {
   int B, S, Sp, H, KV, window, chunks;  // Sp: S rounded up to kB
   float scale;
 };
+
+// The width of a head's tile: 112 columns go in a 128-column tile whose
+// last 16 are zeros (224-byte rows are no whole number of 128-byte
+// swizzle lines).
+template <int HD>
+__host__ __device__ constexpr int padded() {
+  return HD == 112 ? 128 : HD;
+}
 
 // Tiles of kB rows of HD bf16 in wgmma's swizzled layout (wgmma_sm90.cuh):
 // lines of kLine bytes, HD * 2 / kLine blocks of kB lines each.
@@ -488,7 +502,7 @@ struct Tile {
 // 1024 bytes to align the tiles.
 template <int HD>
 constexpr size_t bf16_smem_bytes() {
-  return 6 * (size_t)Tile<HD>::kBytes + sizeof(float) * 4 * kB + 1024;
+  return 6 * (size_t)Tile<padded<HD>()>::kBytes + sizeof(float) * 4 * kB + 1024;
 }
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -497,19 +511,20 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 // kB rows of HD bf16 from src (row stride `stride` elements), starting at
-// sequence position s0, into a swizzled tile; rows past S are zeros.
+// sequence position s0, into a swizzled tile of padded<HD>() columns; rows
+// past S and columns past HD are zeros.
 template <int HD>
 __device__ __forceinline__ void load_tile_bf16(unsigned char* dst, const bf16* src,
                                                long long stride, int s0, int S, int tid) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks a row
+  constexpr int kChunks = padded<HD>() / 8;  // 16-byte chunks a tile row
   static_assert(kB * kChunks % kBThreads == 0, "tile must split evenly over the block");
 #pragma unroll
   for (int j = 0; j < kB * kChunks / kBThreads; ++j) {
     const int i = tid + j * kBThreads;
     const int r = i / kChunks, c = i % kChunks;
     const int s = s0 + r;
-    const bool in = s < S;
-    mma::cp_async16(dst + Tile<HD>::offset(r, c), in ? src + s * stride + c * 8 : src,
+    const bool in = s < S && c < HD / 8;
+    mma::cp_async16(dst + Tile<padded<HD>()>::offset(r, c), in ? src + s * stride + c * 8 : src,
                     in ? 16 : 0);
   }
 }
@@ -523,18 +538,19 @@ __device__ __forceinline__ void pack_a(uint32_t (&r)[4], const float* d) {
   r[3] = mma::pack_bf16(d[6], d[7]);
 }
 
-// D_t = dO_t . O_t and lse_t log2(e) of every (b, h, t < Sp) row, HD / 8
-// lanes a row, 16 bytes each; rows past S get zeros.
+// D_t = dO_t . O_t and lse_t log2(e) of every (b, h, t < Sp) row,
+// padded<HD>() / 8 lanes a row (a power of two), 16 bytes each (the lanes
+// past HD idle); rows past S get zeros.
 template <int HD>
 __global__ void __launch_bounds__(256) row_stats(BArgs a) {
-  constexpr int L = HD / 8;
+  constexpr int L = padded<HD>() / 8;
   const long long rows = (long long)a.B * a.H * a.Sp;
   const long long r = ((long long)blockIdx.x * 256 + threadIdx.x) / L;  // (b h) Sp + t
   const int part = threadIdx.x % L;
   const int t = (int)(r % a.Sp);
   const long long bh = r / a.Sp;
   float acc = 0.f, l2 = 0.f;
-  if (r < rows && t < a.S) {
+  if (r < rows && t < a.S && part < HD / 8) {
     const int h = (int)(bh % a.H), b = (int)(bh / a.H);
     const long long off = (((long long)b * a.S + t) * a.H + h) * HD + part * 8;
     const uint4 ov = *reinterpret_cast<const uint4*>(a.o + off);
@@ -562,9 +578,9 @@ __global__ void __launch_bounds__(256) row_stats(BArgs a) {
 // fit an SM; at D = 128 a thread may take 255, and two blocks fit.
 template <int HD>
 __global__ void __launch_bounds__(kBThreads, HD <= 64 ? 3 : 1) dkdv_bf16(BArgs a) {
-  using T = Tile<HD>;
-  constexpr int KS = HD / 16;  // k-steps of S^T and dP^T
-  constexpr int NR = HD / 2;   // accumulator registers of dK and of dV (64 x HD)
+  using T = Tile<padded<HD>()>;
+  constexpr int KS = HD / 16;            // k-steps of S^T and dP^T
+  constexpr int NR = padded<HD>() / 2;   // accumulator registers of dK and of dV (64 x padded)
   extern __shared__ unsigned char dkdv_smem_bf16[];
   unsigned char* k_s = align1024(dkdv_smem_bf16);
   unsigned char* v_s = k_s + T::kBytes;
@@ -749,9 +765,9 @@ __global__ void __launch_bounds__(256) sum_chunks(BArgs a, int hd) {
 
 template <int HD>
 __global__ void __launch_bounds__(kBThreads, HD <= 64 ? 3 : 1) dq_bf16(BArgs a) {
-  using T = Tile<HD>;
-  constexpr int KS = HD / 16;  // k-steps of S and dP
-  constexpr int NR = HD / 2;   // accumulator registers of dQ (64 x HD)
+  using T = Tile<padded<HD>()>;
+  constexpr int KS = HD / 16;            // k-steps of S and dP
+  constexpr int NR = padded<HD>() / 2;   // accumulator registers of dQ (64 x padded)
   extern __shared__ unsigned char dq_smem_bf16[];
   unsigned char* q_s = align1024(dq_smem_bf16);
   unsigned char* do_s = q_s + T::kBytes;
@@ -872,7 +888,7 @@ __global__ void __launch_bounds__(kBThreads, HD <= 64 ? 3 : 1) dq_bf16(BArgs a) 
 
 template <int HD>
 int launch_bf16(const BArgs& a, cudaStream_t s) {
-  const long long threads = (long long)a.B * a.H * a.Sp * (HD / 8);
+  const long long threads = (long long)a.B * a.H * a.Sp * (padded<HD>() / 8);
   row_stats<HD><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -964,6 +980,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   switch (hd) {
     case 32: return launch_bf16<32>(a, s);
     case 64: return launch_bf16<64>(a, s);
+    case 112: return launch_bf16<112>(a, s);
     case 128: return launch_bf16<128>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }

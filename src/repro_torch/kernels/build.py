@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("grad_diff_norm", "topk_quant", "flash_attention", "flash_attention_bwd",
-           "linear_scan")
+           "linear_scan", "linear_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _build_lock = threading.Lock()   # one build at a time in a process (shared tmp names)

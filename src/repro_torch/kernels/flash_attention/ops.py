@@ -20,10 +20,10 @@ they come out of the attention layer's projections and returns
   before training existed.
 * backward: CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (no
   atomics: dK and dV a key tile, then dQ a query tile) from q, k, v, o,
-  dO and lse, and return gradients in the input dtype.  It takes head
-  dims 32, 64 and 128 (``BWD_HEAD_DIMS``); the forward also takes 112
-  (zamba2_7b's shared attention, served only), which the backward
-  refuses here, before any launch.  The route
+  dO and lse, and return gradients in the input dtype.  It takes the
+  forward's head dims, 32, 64, 112 (zamba2_7b's shared attention: the
+  bf16 route's tiles hold 112 columns padded with zeros to 128) and 128
+  (``BWD_HEAD_DIMS``).  The route
   follows the dtype.  bf16 (the ``[train]`` path) runs every product on
   the tensor cores (``wgmma``, one warpgroup a 64-row tile, P and dS
   rounded to bf16 in registers) with ``cp.async`` rings of bf16 tiles,
@@ -62,8 +62,8 @@ launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 112, 128)   # the forward kernel's (112: zamba2_7b, serving only)
-BWD_HEAD_DIMS = (32, 64, 128)    # the backward kernel's
+HEAD_DIMS = (32, 64, 112, 128)   # the forward kernel's (112: zamba2_7b's shared attention)
+BWD_HEAD_DIMS = (32, 64, 112, 128)   # the backward kernel's
 BWD_TILE = 64              # queries and keys a tile of the bf16 backward
 BWD_BLOCKS_PER_SM = 2      # its dK/dV blocks resident an SM at hd 128 (255 registers, 100 KB)
 
@@ -106,8 +106,7 @@ def _check_launch(q, backward: bool = False):
     B, S, H, hd = q.shape
     if backward and hd not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention backward kernel takes head_dim in {BWD_HEAD_DIMS}, "
-                         f"got {hd}: head_dim {hd} is served (forward) only, its backward "
-                         f"is not written yet (ROADMAP.md §2 item 4b)")
+                         f"got {hd}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if max(B, H) > 65535:

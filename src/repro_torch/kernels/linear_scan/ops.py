@@ -16,8 +16,19 @@ view whose base pointer or (b, s, head) strides do not allow that to a
 contiguous one; the projections of the RWKV6 layer are read in place,
 and so are Mamba2's C and B broadcast over the heads (head stride 0) and
 its per-head la, which the kernel reads a float at a time.
-CPU tensors take the plain version in ``ref.py``.  Nothing else falls
-back: a CUDA tensor the kernel does not take raises.
+CPU tensors take the plain version in ``ref.py``.
+
+``recurrence`` is ``LinearScan``, a ``torch.autograd.Function``: its
+backward launches ``csrc/linear_scan_bwd.cu`` on CUDA tensors (both
+forms, fp32 and bf16 inputs, float64 states, no atomics: dq from a
+forward scan that rebuilds the state, dk, dv and the initial state's
+gradient from a reverse scan of the state's gradient, dla from the
+gated-linear-attention identity, du summed over the batch in order)
+and ``ref.recurrence_bwd`` on CPU tensors.  The backward reads q, k, v, la and dy through their strides,
+so Mamba2's C and B (head stride 0) are read in place; their gradients
+come back per head (B, S, H, K) and the broadcast's own backward sums
+them over the heads.  Nothing else falls back: a CUDA tensor that the
+kernels do not take raises, forward or backward.
 """
 from __future__ import annotations
 
@@ -26,13 +37,16 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build
 from repro_torch.kernels.linear_scan import ref
 
-# kernel launches since the last reset (chip_smoke.py reads it to show
-# that a run went through the kernel)
+# kernel launches since the last reset, forward and backward (one a
+# wrapper call; a backward call is two CUDA launches, three with du);
+# chip_smoke.py reads them to show that a run went through the kernels
 launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 64   # largest K and V the kernel takes
@@ -42,6 +56,14 @@ MAX_DIM = 64   # largest K and V the kernel takes
 def _kernel():
     fn = build.library("linear_scan").linear_scan_fwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    fn = build.library("linear_scan_bwd").linear_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
@@ -123,11 +145,106 @@ def _launch(q, k, v, la, u, include_current, initial_state):
     return y, state
 
 
+def _launch_bwd(q, k, v, la, u, dy, d_state, include_current, initial_state):
+    """The backward kernels: (dq, dk, dv in q's dtype, dla fp32 in la's
+    shape, du (H, K) fp32 or None, d_initial_state fp32 or None)."""
+    global bwd_launches
+    if v.dtype not in _DTYPES or dy.dtype != v.dtype:
+        raise TypeError(f"linear_scan backward takes float32 or bfloat16 q/k/v and dy of "
+                        f"their dtype, got {v.dtype} and {dy.dtype}")
+    B, S, H, K = q.shape
+    V = v.shape[-1]
+    if K > MAX_DIM or V > MAX_DIM:
+        raise ValueError(f"linear_scan backward takes K, V <= {MAX_DIM}, got K={K}, V={V}")
+    if max(B, H) > 65535:
+        raise ValueError(f"linear_scan backward takes at most 65535 batch rows and heads, "
+                         f"got B={B}, H={H}")
+    per_head = la.dim() == 3
+    q, k, v, dy = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, dy))
+    if not per_head and la.stride(-1) != 1:
+        la = la.contiguous()
+    bonus = not include_current
+    u = u.contiguous() if bonus and u is not None else None
+    fn = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        f32, dev = torch.float32, q.device
+        dq = torch.empty((B, S, H, K), dtype=q.dtype, device=dev)
+        dk = torch.empty((B, S, H, K), dtype=q.dtype, device=dev)
+        dv = torch.empty((B, S, H, V), dtype=q.dtype, device=dev)
+        dla = torch.empty(tuple(la.shape), dtype=f32, device=dev)
+        # float64 scratch: the query terms of dla between the two launches,
+        # dS . S_final a row, du's (b, h) partials
+        xq = torch.empty(tuple(la.shape), dtype=torch.float64, device=dev)
+        xfin = torch.empty((B, H, K), dtype=torch.float64, device=dev)
+        du_part = (torch.empty((B, H, K), dtype=torch.float64, device=dev)
+                   if u is not None else None)
+        du = torch.empty((H, K), dtype=f32, device=dev) if u is not None else None
+        ds0 = (torch.empty((B, H, K, V), dtype=f32, device=dev)
+               if initial_state is not None else None)
+        s0 = initial_state.contiguous() if initial_state is not None else None
+        ds = d_state.to(f32).contiguous() if d_state is not None else None
+        strides = (ctypes.c_longlong * 15)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                           *la.stride()[:3], *dy.stride()[:3])
+        ptr = lambda x: None if x is None else x.data_ptr()
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dy.data_ptr(), la.data_ptr(),
+                 ptr(u), ptr(s0), ptr(ds), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 dla.data_ptr(), xq.data_ptr(), xfin.data_ptr(), ptr(du_part), ptr(du),
+                 ptr(ds0), _DTYPES[v.dtype], B, S, H, K, V, int(include_current), int(per_head),
+                 ctypes.addressof(strides), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"linear_scan backward launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return dq, dk, dv, dla, du, ds0
+
+
+class LinearScan(torch.autograd.Function):
+    """The recurrence with its gradient: the kernels on CUDA tensors, the
+    plain versions on CPU tensors.  ``apply(q, k, v, la, u,
+    include_current, initial_state)`` returns (y, final state)."""
+
+    @staticmethod
+    def forward(q, k, v, la, u, include_current, initial_state):
+        if q.device.type == "cpu":
+            return ref.recurrence(q, k, v, la, u, include_current=include_current,
+                                  initial_state=initial_state)
+        return _launch(q, k, v, la, u, include_current, initial_state)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, la, u, include_current, initial_state = inputs
+        ctx.include_current = include_current
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, la, u, initial_state)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, d_state):
+        q, k, v, la, u, initial_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+        if q.device.type == "cpu":
+            grads = ref.recurrence_bwd(q, k, v, la, u, dy, d_state,
+                                       include_current=ctx.include_current,
+                                       initial_state=initial_state)
+        else:
+            grads = _launch_bwd(q, k, v, la, u, dy, d_state, ctx.include_current,
+                                initial_state)
+        dq, dk, dv, dla, du, ds0 = grads
+        if u is not None and du is None:      # u unused by the Mamba2 form
+            du = torch.zeros_like(u)
+        need = ctx.needs_input_grad
+        return (dq if need[0] else None, dk if need[1] else None, dv if need[2] else None,
+                dla.to(la.dtype) if need[3] else None,
+                du.to(u.dtype) if need[4] else None, None,
+                ds0.to(initial_state.dtype) if need[6] else None)
+
+
 def recurrence(q, k, v, la, u=None, *, include_current: bool = True, initial_state=None):
     """Layer shapes: q, k (B,S,H,K); la (B,S,H,K) per dim, clamped, or
     (B,S,H) per head, unclamped; v (B,S,H,V); u (H,K) optional;
     initial_state (B,H,K,V).  Returns y (B,S,H,V) in v's dtype and the
-    fp32 final state (B,H,K,V)."""
+    fp32 final state (B,H,K,V).  Differentiable in q, k, v, la, u and
+    initial_state."""
     if (q.dim() != 4 or q.shape != k.shape or la.shape not in (q.shape, q.shape[:3])
             or v.shape[:3] != q.shape[:3]):
         raise ValueError(f"need q, k (B,S,H,K), la (B,S,H,K) or (B,S,H) and v (B,S,H,V), got "
@@ -144,12 +261,10 @@ def recurrence(q, k, v, la, u=None, *, include_current: bool = True, initial_sta
     others = [t for t in (u, initial_state) if t is not None]
     if any(t.device != q.device for t in (k, v, la, *others)):
         raise ValueError("q, k, v, la, u and initial_state must share one device")
-    if q.device.type == "cpu":
-        return ref.recurrence(q, k, v, la, u, include_current=include_current,
-                              initial_state=initial_state)
-    if q.device.type != "cuda":
+    if q.device.type == "cuda":
+        if la.dtype != torch.float32 or any(t.dtype != torch.float32 for t in others):
+            raise TypeError(f"linear_scan kernel takes float32 la, u and initial_state, got "
+                            f"{la.dtype}, {[t.dtype for t in others]}")
+    elif q.device.type != "cpu":
         raise RuntimeError(f"linear_scan runs on CPU or CUDA tensors, not {q.device}")
-    if la.dtype != torch.float32 or any(t.dtype != torch.float32 for t in others):
-        raise TypeError(f"linear_scan kernel takes float32 la, u and initial_state, got "
-                        f"{la.dtype}, {[t.dtype for t in others]}")
-    return _launch(q, k, v, la, u, include_current, initial_state)
+    return LinearScan.apply(q, k, v, la, u, include_current, initial_state)

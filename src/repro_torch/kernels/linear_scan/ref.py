@@ -11,8 +11,19 @@ with a per-dim ``la`` (B, S, H, K) clipped to [LOG_A_MIN, 0], as
 (B, S, H) (Mamba2) taken as it is, as the reference's per-head model
 path takes it.  Every exponent is <= 0, so no input overflows it.
 
+``recurrence_bwd`` is the plain version of the backward kernel
+(``csrc/linear_scan_bwd.cu``), written as the kernel computes it: a
+forward scan that rebuilds the state for dq, a reverse scan of the
+state's gradient for dk, dv and the initial state's gradient, and dla
+from the gated-linear-attention identity, with no state stored.
+
 ``chunked`` is a plain model of the bf16 kernel's chunked arithmetic
 (``csrc/linear_scan.cu``), for the tests only.
+
+The forward functions compute in fp32, or in float64 when given
+float64 inputs (the tests' exact check of the backward's derivation);
+``recurrence_bwd`` computes in float64 whatever its inputs, as the
+kernel does (its docstring says why).
 """
 from __future__ import annotations
 
@@ -31,7 +42,7 @@ def scan(q, k, v, log_a, u=None, *, include_current: bool = True, initial_state=
     v's dtype and the final fp32 state (B,H,K,V)."""
     B, S, H, K = q.shape
     V = v.shape[-1]
-    f32, out_dtype = torch.float32, v.dtype
+    f32, out_dtype = torch.promote_types(v.dtype, torch.float32), v.dtype
     state = (initial_state.to(f32) if initial_state is not None
              else torch.zeros((B, H, K, V), dtype=f32, device=q.device))
     q, k, v, w = q.to(f32), k.to(f32), v.to(f32), torch.exp(log_a.to(f32))
@@ -58,10 +69,112 @@ def recurrence(q, k, v, la, u=None, *, include_current: bool = True, initial_sta
     """The kernel's function on the layer layout: ``scan`` with a per-dim
     ``la`` (B,S,H,K) clipped to [LOG_A_MIN, 0], or a per-head ``la``
     (B,S,H) as it is.  Returns (y in v's dtype, fp32 final state)."""
-    la = la.to(torch.float32)
+    la = la.to(torch.promote_types(la.dtype, torch.float32))
     if la.dim() == 4:
         la = torch.clamp(la, LOG_A_MIN, 0.0)
     return scan(q, k, v, la, u, include_current=include_current, initial_state=initial_state)
+
+
+def recurrence_bwd(q, k, v, la, u, dy, d_state, *, include_current: bool = True,
+                   initial_state=None):
+    """Gradients of ``recurrence`` against dy (B,S,H,V) and the final
+    state's gradient ``d_state`` (B,H,K,V; None: zeros), computed as the
+    backward kernel computes them.  Returns (dq, dk, dv in the inputs'
+    dtypes, dla (per dim or per head, as la came in) in fp32, du (H,K) or
+    None, d_initial_state (B,H,K,V) or None).
+
+    * dq: a forward scan rebuilds S_t from the initial state and reads
+      S_t dy_t (S_{t-1} dy_t with the bonus, plus u k_t (v_t . dy_t)).
+    * dk, dv: a reverse scan of G_t, the gradient of S_t, from d_state:
+      G_t = diag(exp(la_{t+1})) G_{t+1} + q_t dy_t^T (with the bonus
+      q_{t+1} dy_{t+1}^T, one step on); dk_t = G_t v_t, dv_t = G_t^T k_t,
+      plus the bonus terms; what G is after step 0 is the initial
+      state's gradient.
+    * dla: with c_t the cumulative (clamped) log-decay, every decayed
+      term of the function is exp(c_t - c_s), t a query's step and s a
+      key's, so dL/dc_t = q_t . dq_t - k_t . dk_t taken over the decayed
+      terms only: the query's exponent is c_t (c_{t-1} with the bonus,
+      whose terms carry no decay), and the final state adds
+      d_state . S_final at the last step.  dla is the reverse cumulative
+      sum of dL/dc, zero where the per-dim clamp cut la (as the clamp's
+      gradient is), and summed over K in the per-head form.
+    * du = sum over (b, t) of q_t k_t (v_t . dy_t).
+
+    Every state, product and sum is float64: the query and key terms of
+    dla nearly cancel (they are equal where a step's decay is near 0),
+    so in fp32 their rounding, that of the fp32 states above all, is
+    what is left of them, and a parameter summed over every step's dla,
+    such as Mamba2's A_log, comes out 1e-4 of its scale from the float64
+    gradient where autograd through the fp32 scan is 1e-6 from it.
+    dq, dk, dv are rounded once to the inputs' dtype, dla, du and
+    d_initial_state to fp32 (float64 inputs keep float64)."""
+    B, S, H, K = q.shape
+    V = v.shape[-1]
+    ct = torch.float64
+    out_f = torch.promote_types(v.dtype, torch.float32)
+    per_head = la.dim() == 3
+    la = la.to(torch.promote_types(la.dtype, torch.float32))
+    lac = la if per_head else torch.clamp(la, LOG_A_MIN, 0.0)
+    w = torch.exp(lac.to(ct))
+    w = w[..., None] if per_head else w                          # (B, S, H, K | 1)
+    qf, kf, vf, dyf = (x.to(ct) for x in (q, k, v, dy))
+    bonus = not include_current
+    uu = (u.to(ct) if u is not None else torch.ones((H, K), dtype=ct, device=q.device))
+    vdy = torch.einsum("bshv,bshv->bsh", vf, dyf)[..., None]     # (B, S, H, 1)
+
+    # forward: the state, and the decayed part of dq
+    state = (initial_state.to(ct) if initial_state is not None
+             else torch.zeros((B, H, K, V), dtype=ct, device=q.device))
+    dq_dec = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        if include_current:
+            state = w[:, t, :, :, None] * state + kv
+            dq_dec.append(torch.einsum("bhkv,bhv->bhk", state, dyf[:, t]))
+        else:
+            dq_dec.append(torch.einsum("bhkv,bhv->bhk", state, dyf[:, t]))
+            state = w[:, t, :, :, None] * state + kv
+    dq_dec = torch.stack(dq_dec, dim=1)                          # (B, S, H, K)
+
+    # reverse: G, the gradient of the state, and the decayed part of dk
+    g = (d_state.to(ct) if d_state is not None
+         else torch.zeros((B, H, K, V), dtype=ct, device=q.device))
+    dk_dec, dv = [None] * S, [None] * S
+    for t in reversed(range(S)):
+        qdy = qf[:, t, :, :, None] * dyf[:, t, :, None, :]
+        if include_current:
+            g = g + qdy
+            dk_dec[t] = torch.einsum("bhkv,bhv->bhk", g, vf[:, t])
+            dv[t] = torch.einsum("bhkv,bhk->bhv", g, kf[:, t])
+            g = w[:, t, :, :, None] * g
+        else:
+            dk_dec[t] = torch.einsum("bhkv,bhv->bhk", g, vf[:, t])
+            quk = torch.einsum("bhk,hk,bhk->bh", qf[:, t], uu, kf[:, t])
+            dv[t] = torch.einsum("bhkv,bhk->bhv", g, kf[:, t]) + quk[..., None] * dyf[:, t]
+            g = w[:, t, :, :, None] * g + qdy
+    dk_dec, dv = torch.stack(dk_dec, dim=1), torch.stack(dv, dim=1)
+
+    dq, dk = dq_dec, dk_dec
+    if bonus:
+        dq = dq + uu * kf * vdy
+        dk = dk + qf * uu * vdy
+    # dla: the query terms at each cumulative position, minus the key terms
+    xq = qf * dq_dec
+    if bonus:                                    # position t reads q_{t+1} . dq_{t+1}
+        xq = torch.cat([xq[:, 1:], torch.zeros_like(xq[:, :1])], dim=1)
+    if d_state is not None:
+        xq[:, -1] = xq[:, -1] + torch.einsum("bhkv,bhkv->bhk", d_state.to(ct), state)
+    dc = xq - kf * dk_dec
+    dla = torch.flip(torch.cumsum(torch.flip(dc, [1]), dim=1), [1])
+    if per_head:
+        dla = dla.sum(-1)
+    else:
+        dla = torch.where((la >= LOG_A_MIN) & (la <= 0.0), dla, torch.zeros_like(dla))
+    du = None
+    if bonus and u is not None:
+        du = torch.einsum("bshk,bshk,bsh->hk", qf, kf, vdy[..., 0]).to(out_f)
+    d_init = g.to(out_f) if initial_state is not None else None
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dla.to(out_f), du, d_init)
 
 
 def linear_scan(q, k, v, la, u=None, *, include_current: bool = True):

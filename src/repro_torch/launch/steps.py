@@ -16,11 +16,10 @@ with the layers' checkpointing), its ``lax.scan`` over local steps a
 loop, and the per-silo value is one launch of the grad_diff_norm kernel
 over the stacked (P, ...) gradients (``kernels/grad_diff_norm``).  The
 gradients of the attention layers come from the flash_attention backward
-kernel on the card.  RWKV6 and Mamba2 (zamba2_7b) configs raise
-``NotImplementedError`` on the card while grad is enabled
-(``models/recurrence.py``: no linear_scan backward yet), and so does
-the backward at zamba2_7b's head_dim of 112; the prefill and serve
-steps take every ported config.  Each step takes the reference's
+kernel on the card (head_dim 112, zamba2_7b's shared attention,
+included), those of the RWKV6 and Mamba2 recurrences from the
+linear_scan backward kernel; every ported config trains and serves.
+Each step takes the reference's
 ``moe_dispatch`` ("einsum" or "sort") for the MoE configs; its
 ``q_chunk`` has no counterpart (``models/decoder``).
 """

@@ -7,11 +7,16 @@ The device defaults to ``cuda`` and raises without a card.  Parameters
 are drawn from ``torch.Generator(device).manual_seed(0)`` in
 ``param_dtype``; the data is ``token_stream`` (seed 1), as in the
 reference.  Each step is ``make_train_step``: the decoder's LM loss with
-each layer checkpointed, its gradient (on the card through the
-flash_attention forward and backward kernels), a global-norm clip and
-AdamW.  The reference's production mesh (``--mesh prod``) has no
-counterpart: the port trains on one device, an MoE config through the
-default "einsum" dispatch.
+each layer checkpointed, its gradient, a global-norm clip and AdamW.
+Every ported architecture trains on the card: the attention layers
+(minicpm_2b, starcoder2_3b, the MoE models and zamba2_7b's shared
+attention at head_dim 112) through the flash_attention forward and
+backward kernels, RWKV6 (rwkv6_3b) and Mamba2 (zamba2_7b) through the
+linear_scan forward and backward kernels, and the MoE models
+(granite_moe_3b_a800m, qwen3_moe_30b_a3b) through the default "einsum"
+dispatch, whose scatter and gather are plain PyTorch.  The reference's
+production mesh (``--mesh prod``) has no counterpart: the port trains
+on one device.
 ``--ckpt-dir`` saves the final parameters through
 ``repro_torch.checkpoint.save``.
 """

@@ -65,14 +65,17 @@ def _expert_ffn(p, xe):
     return torch.bmm(h, p["w_down"])
 
 
-def _route(p, cfg, x2d):
-    """x2d (T, d) -> (weights (T, k) in x2d's dtype, ids (T, k), aux loss)."""
+def _route(p, cfg, x2d, ids=None):
+    """x2d (T, d) -> (weights (T, k) in x2d's dtype, ids (T, k), aux loss).
+    Given ``ids`` (T, k), those are the choices in place of the top k (a
+    check replays one route's choices in another)."""
     m = cfg.moe
     with fp32.ieee():
         logits = x2d.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)                       # (T, E)
-    top = torch.sort(probs, dim=-1, descending=True, stable=True)
-    w, ids = top.values[:, :m.top_k], top.indices[:, :m.top_k]
+    if ids is None:
+        ids = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :m.top_k]
+    w = torch.gather(probs, 1, ids)
     w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-9)
     # Switch-style load balance loss: E * sum_e f_e * P_e, f_e of the top-1 id
     f_e = torch.bincount(ids[:, 0], minlength=m.num_experts).float() / x2d.shape[0]

@@ -11,14 +11,13 @@ RWKV6 with a per-dim decay, clamped to [LOG_A_MIN, 0] in the prompt
 path; Mamba2 with one decay a head, unclamped, as in the reference.  The
 prompt runs through the linear_scan kernel's wrapper
 (``linear_recurrence``): on CUDA the hand-written kernel, which steps
-through time exactly, on the CPU its plain sequential version.  The
-kernel has no backward yet, so on CUDA ``linear_recurrence`` raises
-``NotImplementedError`` when grad is enabled and an input needs it,
-rather than train RWKV6 or Mamba2 without the scan's gradient
-(ROADMAP.md §2 item 4b); on the CPU autograd runs through the plain
-version.  The reference's chunked algorithm is a TPU decomposition of
-the same function and is not carried over.  Decode is one plain state
-update.
+through time exactly, on the CPU its plain sequential version.  Both
+train: the wrapper is an autograd Function whose backward is the
+hand-written backward kernel on CUDA (``csrc/linear_scan_bwd.cu``) and
+its plain version on the CPU, for every input (q, k, v, the log-decay,
+RWKV6's u and an initial state).  The reference's chunked algorithm is
+a TPU decomposition of the same function and is not carried over.
+Decode is one plain state update.
 """
 from __future__ import annotations
 
@@ -58,11 +57,6 @@ def linear_recurrence(q, k, v, log_a, u=None, include_current=True,
     if log_a.shape != want:
         raise ValueError(f"decay_per={decay_per!r} takes log_a of shape {tuple(want)}, got "
                          f"{tuple(log_a.shape)}")
-    if (q.device.type == "cuda" and torch.is_grad_enabled()
-            and any(t is not None and t.requires_grad for t in (q, k, v, log_a, u))):
-        raise NotImplementedError("training through linear_recurrence on CUDA needs a "
-                                  "backward of the linear_scan kernel, not written yet "
-                                  "(ROADMAP.md §2 item 4b)")
     if decay_per == "head":
         log_a = log_a.float()
     return scan_ops.recurrence(q, k, v, log_a, u, include_current=include_current,

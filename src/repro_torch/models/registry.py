@@ -7,8 +7,8 @@ trains and serves (dense MHA with muP-style scales and tied
 embeddings), starcoder2_3b trains and serves, granite_moe_3b_a800m and
 qwen3_moe_30b_a3b (Mixture-of-Experts, qwen3 with per-head q/k
 RMSNorm) serve and train, rwkv6_3b and zamba2_7b (Mamba2 with a shared
-attention block) serve (and train on the CPU only, until the
-linear_scan kernel has a backward).
+attention block) serve and train, on the card through the linear_scan
+kernel and its backward.
 The others raise ``NotImplementedError``: ROADMAP.md §1 item 11 queues
 them.
 """

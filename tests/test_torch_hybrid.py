@@ -506,12 +506,15 @@ def test_zamba2_trains_on_the_cpu_and_serve_cli(monkeypatch, capsys):
 
 
 def test_backward_refuses_head_dim_112_and_the_rest_still_raises():
-    """The forward kernel takes head_dim 112, its backward refuses it in
-    Python (before any launch); MLA and parallel blocks still raise."""
-    assert 112 in fa_ops.HEAD_DIMS and 112 not in fa_ops.BWD_HEAD_DIMS
+    """Both kernels take head_dim 112, the backward too (zamba2_7b's shared
+    attention trains on the card); a head dim neither takes is refused in
+    Python, before any launch; MLA and parallel blocks still raise."""
+    assert 112 in fa_ops.HEAD_DIMS and 112 in fa_ops.BWD_HEAD_DIMS
     fa_ops._check_launch(torch.zeros(1, 1, 1, 112))
-    with pytest.raises(ValueError, match="item 4b"):
-        fa_ops._check_launch(torch.zeros(1, 1, 1, 112), backward=True)
+    fa_ops._check_launch(torch.zeros(1, 1, 1, 112), backward=True)
+    for bad in (96, 256):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa_ops._check_launch(torch.zeros(1, 1, 1, bad), backward=True)
     cfg = registry.get_smoke_config(ARCH)
     for bad in (dict(parallel_block=True), dict(attention="mla")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -594,26 +597,91 @@ def test_gpu_flash_attention_head_dim_112_matches_plain(cuda, S, window, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.gpu
-def test_gpu_training_raises_and_backward_refuses_112(cuda, ref_params):
-    """Mamba2 with grad on the card raises (no linear_scan backward), and
-    the attention backward refuses head_dim 112 before any launch;
-    serving (no grad) runs."""
-    jcfg, tcfg = configs()
-    tp = from_jax_params(ref_params["smoke"], cuda)
-    toks = torch.from_numpy(_tokens(67, tcfg, 2, 16)).long().to(cuda)
+def _train_steps(tcfg, params, device, steps=3):
+    """``make_train_step`` for ``steps`` steps from ``params`` on
+    ``device``: (final parameters, losses, step 1's gradients, the
+    (linear_scan, flash_attention) launches of the steps, forward and
+    backward)."""
     step, opt_init = tsteps.make_train_step(tcfg)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        step(tp, opt_init(tp), {"tokens": toks, "labels": toks}, 0)
-    with torch.no_grad():
-        logits, _ = tdec.forward(tcfg, tp, toks)
-    assert bool(torch.isfinite(logits).all())
-    q = torch.randn(1, 64, 2, 112, device=cuda, requires_grad=True)
-    o = fa_ops.gqa_flash_attention(q, q.detach(), q.detach())
+    p = tree_map(lambda x: x.to(device), params)
+    batch = lambda s: {k: torch.from_numpy(_tokens(70 + s + i, tcfg, 2, 40)).long().to(device)
+                       for i, k in enumerate(("tokens", "labels"))}
+    _, grads = tsteps.value_and_grad(lambda pp, b: tdec.loss_fn(tcfg, pp, b), p, batch(0))
+    st = opt_init(p)
+    before = (ls_ops.launches, ls_ops.bwd_launches, fa_ops.launches, fa_ops.bwd_launches)
+    losses = []
+    for s in range(steps):
+        p, st, info = step(p, st, batch(s), s)
+        losses.append(float(info["loss"]))
+    after = (ls_ops.launches, ls_ops.bwd_launches, fa_ops.launches, fa_ops.bwd_launches)
+    return p, losses, grads, tuple(a - b for a, b in zip(after, before))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_gpu_zamba2_train_step_matches_cpu(cuda, ref_params, variant):
+    """Three steps of the smoke model (and its head_dim-112 variant) at
+    fp32 compute on the card, every Mamba2 scan and shared attention
+    through the kernels forward and backward (each layer checkpointed:
+    two forwards and one backward a layer a step), against the CPU path
+    from the same parameters: step 1's gradients at 1e-4 of each leaf's
+    scale, the losses at 1e-5."""
+    _, tcfg = configs(variant)
+    params = from_jax_params(ref_params[variant])
+    pc, lc, gc, nc = _train_steps(tcfg, params, cuda)
+    pp, lp, gp, _ = _train_steps(tcfg, params, "cpu")
+    pat = tcfg.pattern()
+    n_ssm, n_attn = pat.count("mamba2"), pat.count("shared_attn")
+    assert n_ssm and n_attn and nc == (2 * 3 * n_ssm, 3 * n_ssm, 2 * 3 * n_attn, 3 * n_attn)
+    np.testing.assert_allclose(lc, lp, rtol=1e-5)
+    for name, a, b in zip(_leaf_names(gc), tree_leaves(gc), tree_leaves(gp)):
+        assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0, name
+        scaled_close(a.cpu(), b, TOL["float32"], f"step 1 grad {name}")
+
+
+@pytest.mark.gpu
+def test_gpu_zamba2_train_steps_reproducible(cuda):
+    """bf16 compute: two runs of three steps from one seed on the card give
+    the same losses and parameters, bit for bit (no atomics in either
+    backward kernel)."""
+    _, tcfg = configs("hd112", "bfloat16")
+    params = tdec.init_params(tcfg, torch.Generator().manual_seed(0))
+    (pa, la, _, _), (pb, lb, _, _) = (_train_steps(tcfg, params, cuda) for _ in range(2))
+    assert la == lb and all(np.isfinite(la))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(pa), tree_leaves(pb)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,window,H,KV", [(2048, None, 32, 32), (1000, None, 8, 4),
+                                           (1024, 256, 8, 2), (77, 16, 4, 4), (1, None, 2, 1)])
+def test_gpu_flash_attention_backward_head_dim_112_matches_plain(cuda, S, window, H, KV, dtype):
+    """The backward kernel at head_dim 112 (its tiles padded with zeros to
+    128 on the bf16 route) through the Function, against the plain
+    backward: 1e-4 (fp32) or 2e-2 (bf16) of each gradient's scale,
+    floored at 0.1 where S = 1 makes dq and dk exactly 0; two launches
+    give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    dt = TORCH_DT[dtype]
+    q = torch.randn(2, S, H, 112, generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn(2, S, KV, 112, generator=gen, device=cuda).to(dt) for _ in range(2))
+    do = torch.randn(2, S, H, 112, generator=gen, device=cuda).to(dt)
+
+    def grads():
+        req = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = fa_ops.gqa_flash_attention(*req, window=window)
+        return torch.autograd.grad(o, req, do)
+
     before = fa_ops.bwd_launches
-    with pytest.raises(ValueError, match="item 4b"):
-        o.sum().backward()
-    assert fa_ops.bwd_launches == before
+    got, again = grads(), grads()
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_launches == before + 2
+    want = fa_ref.gqa_attention_bwd(q, k, v, do, window=window)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        assert a.dtype == dt and bool(torch.isfinite(a).all()) and torch.equal(a, c), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * max(float(b.float().abs().max()), 0.1), (name, err)
 
 
 @pytest.mark.gpu

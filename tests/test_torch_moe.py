@@ -533,3 +533,56 @@ def test_gpu_moe_two_runs_from_one_seed_are_bit_equal(cuda, arch):
             l1, _, _ = tdec.prefill(cfg, params, toks, 32, moe_dispatch=dispatch)
             l2, _, _ = tdec.prefill(cfg, params, toks, 32, moe_dispatch=dispatch)
             assert torch.equal(l1, l2), dispatch
+
+
+def _moe_train_steps(cfg, params, device, steps=3):
+    """``make_train_step`` on a smoke MoE model: (final parameters,
+    losses, step 1's gradients, the flash_attention launches of the
+    steps, forward and backward)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    step, opt_init = tsteps.make_train_step(cfg)
+    p = tree_map(lambda x: x.to(device), params)
+    batch = lambda s: {k: torch.from_numpy(_tokens(80 + s + i, cfg, 2, 32)).long().to(device)
+                       for i, k in enumerate(("tokens", "labels"))}
+    _, grads = tsteps.value_and_grad(lambda pp, b: tdec.loss_fn(cfg, pp, b), p, batch(0))
+    st = opt_init(p)
+    before = (fa_ops.launches, fa_ops.bwd_launches)
+    losses = []
+    for s in range(steps):
+        p, st, info = step(p, st, batch(s), s)
+        losses.append(float(info["loss"]))
+    return p, losses, grads, (fa_ops.launches - before[0], fa_ops.bwd_launches - before[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gpu_moe_train_step_matches_cpu(cuda, ref_params, arch):
+    """Three steps of the smoke MoE models at fp32 compute on the card
+    (attention through the kernels forward and backward; qwen3's per-head
+    q/k RMSNorm and both models' router, dispatch and experts in plain
+    PyTorch, its aux loss included) against the CPU path from the same
+    parameters: step 1's gradients at 1e-4 of each leaf's scale, the
+    losses at 1e-5."""
+    _, tcfg = configs(arch)
+    params = from_jax_params(ref_params[arch])
+    _, lc, gc, nc = _moe_train_steps(tcfg, params, cuda)
+    _, lp, gp, _ = _moe_train_steps(tcfg, params, "cpu")
+    assert nc == (2 * 3 * tcfg.num_layers, 3 * tcfg.num_layers)
+    np.testing.assert_allclose(lc, lp, rtol=1e-5)
+    for name, a, b in zip(_leaf_names(gc), tree_leaves(gc), tree_leaves(gp)):
+        assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0, name
+        scaled_close(a.cpu(), b, TOL["float32"], f"step 1 grad {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gpu_moe_train_steps_reproducible(cuda, arch):
+    """bf16 compute: two runs of three steps from one seed on the card give
+    the same losses and parameters, bit for bit: the dispatch's scatter
+    (index_add) and gather backward add a kept pair's gradient to zeros
+    only, so no atomics' order reaches a result."""
+    cfg = registry.get_smoke_config(arch)
+    params = tdec.init_params(cfg, torch.Generator().manual_seed(0))
+    (pa, la, _, _), (pb, lb, _, _) = (_moe_train_steps(cfg, params, cuda) for _ in range(2))
+    assert la == lb and all(np.isfinite(la))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(pa), tree_leaves(pb)))
