@@ -118,10 +118,13 @@ Run it from the root of a checkout:
 Before the main paths it counts the tensor-core instructions (HMMA,
 HGMMA) in each kernel's compiled functions (``cuobjdump -sass`` from
 nvcc's toolkit) and fails if a bf16 route of flash_attention, its
-backward or linear_scan has none.  Its ``[linear_scan]`` phase also
-holds the linear_scan backward kernel against its plain version at the
-[train] path's shapes (rwkv6_3b's per-dim form, zamba2_7b's per-head
-form; bf16 and fp32; with and without a state), timed beside its bound.  It holds the topk_int8 encode
+backward, linear_scan or its backward has none.  Its ``[linear_scan]``
+phase also holds the linear_scan backward kernel against its plain
+version at the [train] path's shapes (rwkv6_3b's per-dim form,
+zamba2_7b's per-head form; bf16 and fp32; with and without a state;
+bf16 also with the decays as each model is initialised), with the
+decay parameter's gradient (the sum of dla la), timed beside its bound
+with each of its CUDA kernels' device time.  It holds the topk_int8 encode
 bit-exact against its plain route on the CNN's and the MLP's trees, on
 each side of the resident route's limit, at 2^24 + 123 elements, on a
 tie-heavy input and on one whose k-th magnitude is 0, and the
@@ -215,16 +218,28 @@ LS_CASES = [(4, 2048, 40, 64, 64, "rwkv", "model", False),
             (4, 2048, 112, 64, 64, "mamba-head", "spread", True)]
 LS_TOL = {"y": 3e-2, "state": 2e-4}
 LS_CHUNK = 32                    # rwkv6_3b's chunk of the TPU kernel's chunked form
-# linear_scan backward cases: (B, S, H, K, V, form, dtype, with state) at
-# the [train] path's shapes: rwkv6_3b's per-dim form with u, and
+# linear_scan backward cases: (B, S, H, K, V, form, dtype, with state, la)
+# at the [train] path's shapes: rwkv6_3b's per-dim form with u, and
 # zamba2_7b's per-head Mamba2 form (C and B broadcast over 112 heads), at
 # TRAIN's batch of 4 x 1024; "with state": an initial state and a final
-# state's gradient
-LS_BWD_CASES = [(4, 1024, 40, 64, 64, "rwkv", dt, st) for dt in ("bfloat16", "float32")
+# state's gradient; la "mild": rwkv6's -exp(w0 + lora) around w0 = -0.6,
+# Mamba2's -softplus(dt); "init": the decays as each model is initialised
+# in its paper, far slower, so that states and gradients cross many
+# chunks (rwkv6: w0 from -6 to -1 over the channels; Mamba2: A in [1, 16]
+# and dt in [1e-3, 0.1] a head)
+LS_BWD_CASES = [(4, 1024, 40, 64, 64, "rwkv", dt, st, "mild") for dt in ("bfloat16", "float32")
                 for st in (False, True)] + \
-               [(4, 1024, 112, 64, 64, "mamba-head", dt, st) for dt in ("bfloat16", "float32")
-                for st in (False, True)]
+               [(4, 1024, 112, 64, 64, "mamba-head", dt, st, "mild")
+                for dt in ("bfloat16", "float32") for st in (False, True)] + \
+               [(4, 1024, 40, 64, 64, "rwkv", "bfloat16", True, "init"),
+                (4, 1024, 112, 64, 64, "mamba-head", "bfloat16", True, "init")]
 LS_BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-4}   # of each gradient's scale
+# bf16 inputs: the fp32 outputs (dla, du, d_initial_state) against the
+# float64 plain version, of their scale; and the sum over (b, t) of dla la
+# for each head (per dim: each (head, dim)), the gradient of the decay's
+# parameter (Mamba2's A_log, rwkv6's w0), of its scale
+LS_BWD_F32_OUT_TOL = 1e-3
+LS_BWD_DECAY_SUM_TOL = 1e-4
 # what each kernel route is built from (csrc/*.cu)
 DESIGN = {("flash_attention", "bfloat16"): "mma.sync m16n8k16 bf16, cp.async 2-stage K/V ring, "
                                            "128-query x 64-key tiles (8 warps x 16 rows), Q and P "
@@ -259,17 +274,30 @@ DESIGN = {("flash_attention", "bfloat16"): "mma.sync m16n8k16 bf16, cp.async 2-s
                                               "row; dK, dV a 64-key tile walking its GQA group's "
                                               "heads in order; dQ a 64-query tile; fp32 FMA "
                                               "64 x 64 tiles on the CUDA cores",
-          "linear_scan_bwd": "the exact sequential recurrence with float64 states, products and "
-                             "sums on the CUDA cores, no atomics, three launches: bwd_forward "
-                             "rebuilds the state for dq (a block of 256 threads a (b, h), four "
-                             "threads a state row); bwd_reverse walks the state's gradient in 2 "
-                             "roles (rows: dk, dla, d_initial_state; columns: dv); sum_du sums "
-                             "du over b in order; 16 steps staged in shared memory a chunk; dla "
-                             "from the gated-linear-attention identity"}
+          ("linear_scan_bwd", "bfloat16"): "chunked, chunk-parallel: edge_bf16 walks the "
+                                           "chunks of 32 (a block a (role, b, h): each chunk's "
+                                           "S_in forward, G_out backward, fp32 scratch); "
+                                           "chunk_bf16 a block a (chunk, b, h): mma.sync "
+                                           "m16n8k16 bf16 with hi/lo splits, decays factored at "
+                                           "16 and 8 steps, 8 x 8 diagonal blocks elementwise "
+                                           "(per head, Mamba2: chunk_head_bf16, the decay matrix "
+                                           "L of each chunk as SSD builds it, no factoring), dla "
+                                           "from the edge states and the chunk's straddling "
+                                           "pairs; du summed in order; no atomics",
+          ("linear_scan_bwd", "float32"): "the exact sequential recurrence with float64 states, "
+                                          "products and sums on the CUDA cores, no atomics, three "
+                                          "launches: bwd_forward rebuilds the state for dq (a "
+                                          "block of 256 threads a (b, h), four threads a state "
+                                          "row); bwd_reverse walks the state's gradient in 2 "
+                                          "roles (rows: dk, dla, d_initial_state; columns: dv); "
+                                          "sum_du sums du over b in order; 16 steps staged in "
+                                          "shared memory a chunk; dla from the gated-linear-"
+                                          "attention identity"}
 # the tensor-core functions of each bf16 route in the compiled library
 # (nvcc's names); each must hold HMMA or HGMMA instructions
 TC_FUNCS = {"flash_attention": ("flash_fwd_bf16",), "linear_scan": ("scan_bf16",),
-            "flash_attention_bwd": ("dkdv_bf16", "dq_bf16")}
+            "flash_attention_bwd": ("dkdv_bf16", "dq_bf16"),
+            "linear_scan_bwd": ("edge_bf16", "chunk_bf16", "chunk_head_bf16")}
 SERVE = dict(batch=4, prompt_len=2048, gen=32)
 CONSISTENCY_LEN = 128            # prefill vs stepwise decode at full width
 MOE_GATE_LEN = 8                 # an MoE model's gated check: 2 x 8 tokens, nothing drops
@@ -347,9 +375,10 @@ def _demangle(mangled: list) -> dict:
 
 def phase_sass() -> dict:
     """Tensor-core instructions (HMMA, HGMMA) in every function of the
-    flash_attention, linear_scan and flash_attention_bwd libraries, read
-    with ``cuobjdump -sass`` from nvcc's toolkit; fails if a function of
-    a bf16 route named in ``TC_FUNCS`` is missing or has none."""
+    flash_attention, linear_scan, flash_attention_bwd and linear_scan_bwd
+    libraries, read with ``cuobjdump -sass`` from nvcc's toolkit; fails if
+    a function of a bf16 route named in ``TC_FUNCS`` is missing or has
+    none."""
     from repro_torch.kernels import build
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     counts = {}
@@ -802,10 +831,15 @@ def _linear_scan_bwd_ops(B, S, H, K, V) -> int:
 
 def phase_linear_scan_bwd(rows: list):
     """The linear_scan backward kernel at the [train] path's shapes
-    (``LS_BWD_CASES``) against its plain version, ``ref.recurrence_bwd``,
-    on the same inputs: every gradient within ``LS_BWD_TOL`` of its
-    scale, a rerun bit-equal; timed beside its bound and the plain
-    backward (no single PyTorch call computes it)."""
+    (``LS_BWD_CASES``) against its plain version, ``ref.recurrence_bwd``
+    (float64), on the same inputs: every gradient within ``LS_BWD_TOL``
+    of its scale, the fp32 outputs of bf16 inputs within
+    ``LS_BWD_F32_OUT_TOL``, the decay parameter's gradient (the sum of
+    dla la over (b, t)) within ``LS_BWD_DECAY_SUM_TOL``, a rerun
+    bit-equal; timed beside its bound and the plain backward (no single
+    PyTorch call computes it), with each CUDA kernel's device time of one
+    call (``torch.profiler``)."""
+    import math
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.linear_scan import ops, ref
@@ -815,15 +849,28 @@ def phase_linear_scan_bwd(rows: list):
     def draw(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    for B, S, H, K, V, form, dtype, with_state in LS_BWD_CASES:
+    def uniform(n, lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device="cuda")
+
+    for B, S, H, K, V, form, dtype, with_state, la_kind in LS_BWD_CASES:
         dt = getattr(torch, dtype)
         head = form == "mamba-head"
-        if head:     # C and B broadcast over the heads (head stride 0), -softplus(dt) a head
+        if head:     # C and B broadcast over the heads (head stride 0), la a head
             q, k = (draw(B, S, K).to(dt)[:, :, None].expand(B, S, H, K) for _ in range(2))
-            la = -F.softplus(draw(B, S, H))
-        else:        # rwkv6's -exp(w0 + lora) around w0 = -0.6, u
+            if la_kind == "init":   # -A softplus(dt_proj + dt_bias), softplus(dt_bias) in [1e-3, 0.1]
+                a_head = uniform(H, 1.0, 16.0)
+                dt0 = torch.exp(uniform(H, math.log(1e-3), math.log(0.1)))
+                dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+                la = -a_head * F.softplus(0.5 * draw(B, S, H) + dt_bias)
+            else:
+                la = -F.softplus(draw(B, S, H))
+        else:        # -exp(w0 + lora), u
             q, k = draw(B, S, H, K).to(dt), draw(B, S, H, K).to(dt)
-            la = -torch.exp(0.5 * draw(B, S, H, K) - 0.6)
+            if la_kind == "init":   # w0 = -6 + 5 (n / (HK - 1))^1.35 over the channels n
+                n = torch.arange(H * K, device="cuda").reshape(H, K) / (H * K - 1)
+                la = -torch.exp(-6.0 + 5.0 * n ** 1.35 + 0.1 * draw(B, S, H, K))
+            else:
+                la = -torch.exp(0.5 * draw(B, S, H, K) - 0.6)
         v, dy = draw(B, S, H, V).to(dt), draw(B, S, H, V).to(dt)
         u = draw(H, K) * 0.5 if not head else None
         s0 = draw(B, H, K, V) if with_state else None
@@ -834,25 +881,38 @@ def phase_linear_scan_bwd(rows: list):
         want = ref.recurrence_bwd(q, k, v, la, u, dy, ds, include_current=cur, initial_state=s0)
         torch.cuda.synchronize()
         case = (f"(B {B}, S {S}, H {H}, K {K}, V {V}) {'per-head (Mamba2)' if head else 'per-dim (RWKV6, u)'} "
-                f"form{', initial state and final-state gradient' if with_state else ''}, {dtype}")
+                f"form, la {la_kind}{', initial state and final-state gradient' if with_state else ''}"
+                f", {dtype}")
         errs = {}
         for name, a, b, c in zip(names, got, want, again):
             if b is None:
                 if a is not None:
                     fail(f"linear_scan backward {case}: {name} returned where the plain has none")
                 continue
+            tol = LS_BWD_TOL[dtype]
+            if name in ("dla", "du", "d_initial_state"):
+                tol = min(tol, LS_BWD_F32_OUT_TOL)
             scale = float(b.float().abs().max())
             err = float((a.float() - b.float()).abs().max())
             errs[name] = err / scale
-            if not (a.dtype == b.dtype and bool(torch.isfinite(a).all())
-                    and err <= LS_BWD_TOL[dtype] * scale):
+            if not (a.dtype == b.dtype and bool(torch.isfinite(a).all()) and err <= tol * scale):
                 fail(f"linear_scan backward {case}: {name} max abs err {err:.3g} beyond "
-                     f"{LS_BWD_TOL[dtype]} x its scale {scale:.3g}")
+                     f"{tol} x its scale {scale:.3g}")
             if not torch.equal(a, c):
                 fail(f"linear_scan backward {case}: two launches on one input differ in {name}")
-        say(f"[linear_scan] backward {case}: max abs err / scale "
+        want_sum = (want[3].double() * la.double()).sum((0, 1))
+        got_sum = (got[3].double() * la.double()).sum((0, 1))
+        sum_err = float((got_sum - want_sum).abs().max() / want_sum.abs().max())
+        if not sum_err <= LS_BWD_DECAY_SUM_TOL:
+            fail(f"linear_scan backward {case}: the sum of dla la over (b, t) is {sum_err:.3g} "
+                 f"of its scale from the float64 plain version's, beyond {LS_BWD_DECAY_SUM_TOL}")
+        say(f"[linear_scan] backward {case}: la from {float(la.min()):.4g} to "
+            f"{float(la.max()):.4g}; max abs err / scale "
             + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
-            + f" (limit {LS_BWD_TOL[dtype]}), rerun bit-equal")
+            + f" (limit {LS_BWD_TOL[dtype]}; dla, du, d_initial_state "
+            f"{min(LS_BWD_TOL[dtype], LS_BWD_F32_OUT_TOL)}), sum of dla la over (b, t) a "
+            f"{'head' if head else '(head, dim)'} {sum_err:.3g} (limit {LS_BWD_DECAY_SUM_TOL}), "
+            f"rerun bit-equal")
         esize = v.element_size()
         nbytes = (B * S * H * V * 3 * esize                     # v, dy read; dv written
                   + B * S * K * 4 * esize * (1 if head else H)  # q, k read; dq, dk written
@@ -864,8 +924,14 @@ def phase_linear_scan_bwd(rows: list):
         ms = cuda_ms(lambda: ops._launch_bwd(q, k, v, la, u, dy, ds, cur, s0), 10, 2)
         plain = cuda_ms(lambda: ref.recurrence_bwd(q, k, v, la, u, dy, ds, include_current=cur,
                                                    initial_state=s0), 1, 1)
+        kernel_us = [[name.replace("void ", "").replace("(anonymous namespace)::", "")
+                      .split("(")[0].split("<")[0], us] for name, us in
+                     device_activity(lambda: ops._launch_bwd(q, k, v, la, u, dy, ds, cur,
+                                                             s0))["kernels"]]
         say(f"[linear_scan] backward {case}: {ms:.4f} ms, bound {bms:.4f} ms ({bby}, "
-            f"{nbytes / 1e9:.4f} GB), {ms / bms:.1f} x the bound; plain {plain:.2f} ms")
+            f"{nbytes / 1e9:.4f} GB), {ms / bms:.1f} x the bound; plain {plain:.2f} ms; "
+            f"one call's kernels (torch.profiler, device us): "
+            + ", ".join(f"{n} {us:.1f}" for n, us in kernel_us))
         rows.append({
             "name": "linear_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/linear_scan_bwd.cu",
@@ -873,8 +939,9 @@ def phase_linear_scan_bwd(rows: list):
             "replaces_note": "the gradient of that forward-only TPU kernel's function; the "
                              "reference trains through its chunked jnp recurrence",
             "shape": [B, S, H, K, V], "form": form, "dtype": dtype, "state": with_state,
-            "design": DESIGN["linear_scan_bwd"], "max_abs_err": max(errs.values()),
-            "max_abs_err_is": "of each gradient's scale", "tol": LS_BWD_TOL[dtype],
+            "la": la_kind, "design": DESIGN[("linear_scan_bwd", dtype)],
+            "max_abs_err": max(errs.values()), "max_abs_err_is": "of each gradient's scale",
+            "tol": LS_BWD_TOL[dtype], "decay_sum_err": sum_err, "kernel_us": kernel_us,
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": bby,
             "bound_bytes": nbytes, "bound_ops": nops, "library_ms": None, "library_call": None})
         del q, k, v, la, dy, s0, ds, got, again, want

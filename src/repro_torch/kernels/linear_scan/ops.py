@@ -19,16 +19,21 @@ its per-head la, which the kernel reads a float at a time.
 CPU tensors take the plain version in ``ref.py``.
 
 ``recurrence`` is ``LinearScan``, a ``torch.autograd.Function``: its
-backward launches ``csrc/linear_scan_bwd.cu`` on CUDA tensors (both
-forms, fp32 and bf16 inputs, float64 states, no atomics: dq from a
-forward scan that rebuilds the state, dk, dv and the initial state's
-gradient from a reverse scan of the state's gradient, dla from the
-gated-linear-attention identity, du summed over the batch in order)
-and ``ref.recurrence_bwd`` on CPU tensors.  The backward reads q, k, v, la and dy through their strides,
-so Mamba2's C and B (head stride 0) are read in place; their gradients
-come back per head (B, S, H, K) and the broadcast's own backward sums
-them over the heads.  Nothing else falls back: a CUDA tensor that the
-kernels do not take raises, forward or backward.
+backward launches ``csrc/linear_scan_bwd.cu`` on CUDA tensors and
+``ref.recurrence_bwd`` on CPU tensors.  Both forms, no atomics, du
+summed in a fixed order.  fp32 inputs take the exact recurrence with
+float64 states (a forward scan that rebuilds the state for dq, a reverse
+scan of its gradient for dk, dv and the initial state's gradient, dla
+from the gated-linear-attention identity).  bf16 inputs take a chunked
+form on the tensor cores: the chunks' edge states from one launch of
+two sweeps (fp32 scratch, 2 B H ceil(S / 32) K V floats), then a block a
+chunk; as in the forward, K and V are zero-padded to multiples of 8
+and a view whose rows are not 16-byte aligned is copied
+(``kernel_operands``).  The backward reads q, k, v, la and dy through
+their strides, so Mamba2's C and B (head stride 0) are read in place;
+their gradients come back per head (B, S, H, K) and the broadcast's own
+backward sums them over the heads.  Nothing else falls back: a CUDA
+tensor that the kernels do not take raises, forward or backward.
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.linear_scan import ref
 
 # kernel launches since the last reset, forward and backward (one a
-# wrapper call; a backward call is two CUDA launches, three with du);
+# wrapper call; a backward call is two CUDA launches, three with du, on
+# either route);
 # chip_smoke.py reads them to show that a run went through the kernels
 launches = 0
 bwd_launches = 0
@@ -160,26 +166,45 @@ def _launch_bwd(q, k, v, la, u, dy, d_state, include_current, initial_state):
         raise ValueError(f"linear_scan backward takes at most 65535 batch rows and heads, "
                          f"got B={B}, H={H}")
     per_head = la.dim() == 3
-    q, k, v, dy = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, dy))
-    if not per_head and la.stride(-1) != 1:
-        la = la.contiguous()
     bonus = not include_current
-    u = u.contiguous() if bonus and u is not None else None
+    u = u if bonus else None
+    f32, f64, dev = torch.float32, torch.float64, q.device
+    tc = v.dtype == torch.bfloat16            # the chunked tensor-core route
+    if tc:
+        q, k, v, la, u, initial_state = kernel_operands(q, k, v, la, u, initial_state)
+        pv, pk = v.shape[-1] - V, q.shape[-1] - K
+        if pv:
+            dy = F.pad(dy, (0, pv))
+        if needs_copy(dy, True):
+            dy = dy.clone(memory_format=torch.contiguous_format)
+        if d_state is not None and (pk or pv):
+            d_state = F.pad(d_state, (0, pv, 0, pk))
+    else:
+        q, k, v, dy = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, dy))
+        if not per_head and la.stride(-1) != 1:
+            la = la.contiguous()
+        u = u.contiguous() if u is not None else None
+    Kk, Vk = q.shape[-1], v.shape[-1]
+    nc = -(-S // ref.CHUNK)                   # the bf16 route's chunks
     fn = _bwd_kernel()
-    with torch.cuda.device(q.device):
-        f32, dev = torch.float32, q.device
-        dq = torch.empty((B, S, H, K), dtype=q.dtype, device=dev)
-        dk = torch.empty((B, S, H, K), dtype=q.dtype, device=dev)
-        dv = torch.empty((B, S, H, V), dtype=q.dtype, device=dev)
+    with torch.cuda.device(dev):
+        dq = torch.empty((B, S, H, Kk), dtype=q.dtype, device=dev)
+        dk = torch.empty((B, S, H, Kk), dtype=q.dtype, device=dev)
+        dv = torch.empty((B, S, H, Vk), dtype=q.dtype, device=dev)
         dla = torch.empty(tuple(la.shape), dtype=f32, device=dev)
-        # float64 scratch: the query terms of dla between the two launches,
-        # dS . S_final a row, du's (b, h) partials
-        xq = torch.empty(tuple(la.shape), dtype=torch.float64, device=dev)
-        xfin = torch.empty((B, H, K), dtype=torch.float64, device=dev)
-        du_part = (torch.empty((B, H, K), dtype=torch.float64, device=dev)
-                   if u is not None else None)
-        du = torch.empty((H, K), dtype=f32, device=dev) if u is not None else None
-        ds0 = (torch.empty((B, H, K, V), dtype=f32, device=dev)
+        if tc:   # fp32 scratch: each chunk's entry state and exit gradient; du's chunk partials
+            xq = torch.empty((2, B, H, nc, Kk, Vk), dtype=f32, device=dev)
+            xfin = None
+            du_part = (torch.empty((B, H, nc, Kk), dtype=f32, device=dev)
+                       if u is not None else None)
+        else:    # float64 scratch: the query terms of dla between the two launches,
+            # dS . S_final a row, du's (b, h) partials
+            xq = torch.empty(tuple(la.shape), dtype=f64, device=dev)
+            xfin = torch.empty((B, H, K), dtype=f64, device=dev)
+            du_part = (torch.empty((B, H, K), dtype=f64, device=dev)
+                       if u is not None else None)
+        du = torch.empty((H, Kk), dtype=f32, device=dev) if u is not None else None
+        ds0 = (torch.empty((B, H, Kk, Vk), dtype=f32, device=dev)
                if initial_state is not None else None)
         s0 = initial_state.contiguous() if initial_state is not None else None
         ds = d_state.to(f32).contiguous() if d_state is not None else None
@@ -188,12 +213,18 @@ def _launch_bwd(q, k, v, la, u, dy, d_state, include_current, initial_state):
         ptr = lambda x: None if x is None else x.data_ptr()
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dy.data_ptr(), la.data_ptr(),
                  ptr(u), ptr(s0), ptr(ds), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 dla.data_ptr(), xq.data_ptr(), xfin.data_ptr(), ptr(du_part), ptr(du),
-                 ptr(ds0), _DTYPES[v.dtype], B, S, H, K, V, int(include_current), int(per_head),
-                 ctypes.addressof(strides), torch.cuda.current_stream(q.device).cuda_stream)
+                 dla.data_ptr(), xq.data_ptr(), ptr(xfin), ptr(du_part), ptr(du),
+                 ptr(ds0), _DTYPES[v.dtype], B, S, H, Kk, Vk, int(include_current),
+                 int(per_head), ctypes.addressof(strides),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"linear_scan backward launch failed: CUDA error {err}")
     bwd_launches += 1
+    if (Kk, Vk) != (K, V):
+        dq, dk, dv = (x[..., :n].contiguous() for x, n in ((dq, K), (dk, K), (dv, V)))
+        dla = dla if per_head else dla[..., :K].contiguous()
+        du = None if du is None else du[:, :K].contiguous()
+        ds0 = None if ds0 is None else ds0[:, :, :K, :V].contiguous()
     return dq, dk, dv, dla, du, ds0
 
 

@@ -18,7 +18,8 @@ state's gradient for dk, dv and the initial state's gradient, and dla
 from the gated-linear-attention identity, with no state stored.
 
 ``chunked`` is a plain model of the bf16 kernel's chunked arithmetic
-(``csrc/linear_scan.cu``), for the tests only.
+(``csrc/linear_scan.cu``), and ``recurrence_bwd_chunked`` the backward
+kernel's bf16 algebra, for the tests only.
 
 The forward functions compute in fp32, or in float64 when given
 float64 inputs (the tests' exact check of the backward's derivation);
@@ -27,12 +28,14 @@ kernel does (its docstring says why).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 LOG_A_MIN = -8.0
-CHUNK, SUBS = 32, (16, 8)   # the bf16 kernel's chunk and its two levels of sub-blocks
-                            # (csrc/linear_scan.cu)
+CHUNK, SUBS = 32, (16, 8)   # the bf16 kernels' chunk and its two levels of sub-blocks
+                            # (csrc/linear_scan.cu, csrc/linear_scan_bwd.cu)
 
 
 def scan(q, k, v, log_a, u=None, *, include_current: bool = True, initial_state=None):
@@ -173,6 +176,163 @@ def recurrence_bwd(q, k, v, la, u, dy, d_state, *, include_current: bool = True,
     du = None
     if bonus and u is not None:
         du = torch.einsum("bshk,bshk,bsh->hk", qf, kf, vdy[..., 0]).to(out_f)
+    d_init = g.to(out_f) if initial_state is not None else None
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dla.to(out_f), du, d_init)
+
+
+def _hi_lo(x):
+    """x as bf16 hi + lo, each held in x's dtype: hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
+def _mul(a, b, split):
+    """a * b; with ``split`` as ``_mm`` takes it, for one product."""
+    if not split:
+        return a * b
+    (ah, al), (bh, bl) = _hi_lo(a), _hi_lo(b)
+    return ah * bh + ah * bl + al * bh
+
+
+def _mm(eq, a, b, split):
+    """einsum(eq, a, b); with ``split`` as the tensor cores take two fp32
+    operands: hi hi + hi lo + lo hi, lo lo dropped."""
+    if not split:
+        return torch.einsum(eq, a, b)
+    (ah, al), (bh, bl) = _hi_lo(a), _hi_lo(b)
+    return torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+
+
+def recurrence_bwd_chunked(q, k, v, la, u, dy, d_state, *, include_current: bool = True,
+                           initial_state=None, chunk: int = CHUNK, dtype=torch.float32,
+                           split: bool = False):
+    """The bf16 backward kernel's algebra (``csrc/linear_scan_bwd.cu``) in
+    plain PyTorch, for the tests: the same arguments and results as
+    ``recurrence_bwd``, computed in ``dtype`` by chunks of ``chunk`` steps.
+
+    * Edge states: a sweep forward over the chunks rebuilds each chunk's
+      entry state S_in, one update a chunk, S_out = exp(cum_C) S_in +
+      (k exp(cum_C - cum))^T v; a sweep backward walks each chunk's exit
+      gradient G_out from d_state, G_in = exp(cum_C) G_out +
+      (q exp(x))^T dy, and G_in of the first chunk is the initial
+      state's gradient.  cum is the chunk's inclusive cumulative
+      (clamped) log-decay, x = cum (Mamba2) or cum one step back (RWKV6).
+    * Each chunk then alone, with D[t,s] = dy_t . v_s and the masked
+      decay exp(x_t - cum_s) (s <= t, or s < t with the bonus):
+      dq_t = exp(x_t) (S_in dy_t) + sum_s D[t,s] k_s exp(x_t - cum_s),
+      dk_s = exp(cum_C - cum_s) (G_out v_s) + sum_t D[t,s] q_t exp(..),
+      dv_s = G_out^T (k_s exp(cum_C - cum_s)) + sum_t A[t,s] dy_t, A the
+      forward's scores, plus the bonus terms.
+    * dla_t = exp(la_t) <S_{t-1}, G_t> over V, split four ways inside the
+      chunk: (a) exp(cum_C) <S_in, G_out>, the same at every step; (b)
+      the reverse cumulative sum, from t on (past t with the bonus), of q
+      dq's S_in part; (c) the forward sum before t of k dk's G_out part;
+      (d) the chunk's own pairs (t', s) that straddle t, s < t <= t' (s <
+      t < t'), summed straight.  No sum crosses a chunk and none
+      subtracts, so nothing cancels, and fp32 suffices where the identity
+      over the whole sequence needs float64.
+
+    With ``split`` every product that the kernel runs on the tensor cores
+    with an fp32 operand rounds that operand (and the other) to bf16 hi +
+    lo and drops lo lo, so a CPU test reads the bf16 route's own
+    precision."""
+    B, S, H, K = q.shape
+    V = v.shape[-1]
+    ct = dtype
+    out_f = torch.promote_types(v.dtype, torch.float32)
+    per_head = la.dim() == 3
+    cur = include_current
+    la = la.to(torch.promote_types(la.dtype, torch.float32))
+    lac = la if per_head else torch.clamp(la, LOG_A_MIN, 0.0)
+    C = chunk
+    pad = (-S) % C
+    n = (S + pad) // C
+
+    def chunks(x):                                   # (B, S, H, .) -> (B, n, C, H, .), zeros past S
+        x = F.pad(x.to(ct), (0, 0, 0, 0, 0, pad))
+        return x.reshape(B, n, C, H, x.shape[-1])
+
+    qc, kc, vc, dyc = (chunks(x) for x in (q, k, v, dy))
+    lc = chunks(lac[..., None] if per_head else lac)            # (B, n, C, H, 1 | K)
+    cum = torch.cumsum(lc, dim=2)
+    x = cum if cur else F.pad(cum[:, :, :-1], (0, 0, 0, 0, 1, 0))
+    tot = cum[:, :, -1]                                          # (B, n, H, 1 | K)
+    uu = u.to(ct) if u is not None else torch.ones((H, K), dtype=ct, device=q.device)
+    mm = functools.partial(_mm, split=split)
+
+    # the edge sweeps
+    kt = kc * torch.exp(tot[:, :, None] - cum)                   # k exp(cum_C - cum)
+    qx = qc * torch.exp(x)                                       # q exp(x)
+    zero = torch.zeros((B, H, K, V), dtype=ct, device=q.device)
+    st = initial_state.to(ct) if initial_state is not None else zero
+    s_in = []
+    for c in range(n):
+        s_in.append(st)
+        st = torch.exp(tot[:, c])[..., None] * st + mm("bshk,bshv->bhkv", kt[:, c], vc[:, c])
+    g = d_state.to(ct) if d_state is not None else zero
+    g_out = [None] * n
+    for c in reversed(range(n)):
+        g_out[c] = g
+        g = torch.exp(tot[:, c])[..., None] * g + mm("bthk,bthv->bhkv", qx[:, c], dyc[:, c])
+    s_in, g_out = torch.stack(s_in, dim=1), torch.stack(g_out, dim=1)   # (B, n, H, K, V)
+
+    # each chunk alone: the edge states' parts
+    dq_inter = torch.exp(x) * mm("bnhkv,bnthv->bnthk", s_in, dyc)
+    dk_inter = torch.exp(tot[:, :, None] - cum) * mm("bnhkv,bnshv->bnshk", g_out, vc)
+    dv = mm("bnshk,bnhkv->bnshv", kt, g_out)
+    # the intra-chunk parts, through the masked decay (B, n, t, s, H, 1 | K)
+    ts = torch.arange(C, device=q.device)
+    taken = (ts[:, None] >= ts[None, :]) if cur else (ts[:, None] > ts[None, :])
+    taken = taken[None, None, :, :, None, None]
+    dec = torch.exp(torch.where(taken, x[:, :, :, None] - cum[:, :, None], -torch.inf))
+    dmat = torch.einsum("bnthv,bnshv->bnhts", dyc, vc)
+    ke = kc[:, :, None] * dec                                    # k_s exp(x_t - cum_s)
+    qe = qc[:, :, :, None] * dec                                 # q_t exp(x_t - cum_s)
+    dq_intra = mm("bnhts,bntshk->bnthk", dmat, ke)
+    dk_intra = mm("bnhts,bntshk->bnshk", dmat, qe)
+    a = mm("bnthk,bntshk->bnhts", qc, ke)
+    vdy = torch.diagonal(dmat, dim1=-2, dim2=-1).permute(0, 1, 3, 2)[..., None]   # (B,n,C,H,1)
+    if not cur:                                  # the bonus on the scores' diagonal
+        a = a + torch.diag_embed(torch.einsum("bnthk,hk,bnthk->bnht", qc, uu, kc))
+    dv = dv + mm("bnhts,bnthv->bnshv", a, dyc)
+
+    # dla's four parts, none summed across a chunk
+    def rcum(y):                                 # inclusive reverse cumulative sum over t
+        return torch.flip(torch.cumsum(torch.flip(y, [2]), dim=2), [2])
+
+    qterm = rcum(qc * dq_inter)                  # (b)
+    if not cur:                                  # t' > t: the query's exponent is one step back
+        qterm = F.pad(qterm[:, :, 1:], (0, 0, 0, 0, 0, 1))
+    kin = kc * dk_inter                          # (c)
+    before = F.pad(torch.cumsum(kin, dim=2)[:, :, :-1], (0, 0, 0, 0, 1, 0))
+    edge = (torch.exp(tot) * (s_in * g_out).sum(-1))[:, :, None]  # (a), (B, n, 1, H, K)
+    # (d): each pair (t', s) of the chunk, q_t' k_s D[t', s] exp(x_t' - cum_s),
+    # summed straight into every step t it straddles, s < t <= t' (s < t < t'
+    # with the bonus); the identity's q dq - k dk over the chunk would leave
+    # the rounding of the pairs that straddle nothing
+    pair = _mul(dmat.permute(0, 1, 3, 4, 2)[..., None], ke, split)   # D[t', s] k_s exp(..)
+    z = qc[:, :, :, None] * pair                                     # (B, n, t', s, H, K)
+    straddle = (ts[None, None, :] < ts[:, None, None]) & (
+        (ts[:, None, None] <= ts[None, :, None]) if cur else (ts[:, None, None] < ts[None, :, None]))
+    own = torch.einsum("tus,bnushk->bnthk", straddle.to(ct), z)
+    dla = edge + qterm + before + own
+
+    dq, dk = dq_inter + dq_intra, dk_inter + dk_intra
+    if not cur:
+        dq = dq + uu * kc * vdy
+        dk = dk + qc * uu * vdy
+
+    def unchunk(y):
+        return y.reshape(B, n * C, *y.shape[3:])[:, :S]
+
+    dq, dk, dv, dla, vdy = (unchunk(y) for y in (dq, dk, dv, dla, vdy))
+    if per_head:
+        dla = dla.sum(-1)
+    else:
+        dla = torch.where((la >= LOG_A_MIN) & (la <= 0.0), dla, torch.zeros_like(dla))
+    du = None
+    if not cur and u is not None:
+        du = torch.einsum("bshk,bshk,bsh->hk", q.to(ct), k.to(ct), vdy[..., 0]).to(out_f)
     d_init = g.to(out_f) if initial_state is not None else None
     return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dla.to(out_f), du, d_init)
 

@@ -57,13 +57,18 @@ def scaled_close(got, want, tol, what=""):
     assert err <= tol * (float(np.abs(w).max()) + 1e-12), (what, err, float(np.abs(w).max()))
 
 
-def _draw(seed, form, *, with_u, with_s0, with_ds, la="wide"):
+def _draw(seed, form, *, with_u, with_s0, with_ds, la="wide", dims=(B, S, H, K, V)):
     """numpy inputs of one case: q, k (B,S,H,K), v, dy (B,S,H,V), la per
     dim (B,S,H,K) or per head (B,S,H), u (H,K), initial state and final
     state's gradient (B,H,K,V), the optional ones None.  ``la`` "wide":
     -exp(1.5 z), about one in twelve below -8 and some below -20; "mild":
     the reference's own range (rwkv6's -exp(0.5 z - 0.6) per dim,
-    Mamba2's -softplus(z) per head)."""
+    Mamba2's -softplus(z) per head); "clamp": "mild" with a sixth of the
+    entries at the clamp, -8; "init": the decays as the models are
+    initialised in their papers (Mamba2: -A softplus(dt_proj + dt_bias),
+    A in [1, 16] and softplus(dt_bias) in [1e-3, 0.1] a head; rwkv6:
+    -exp(w0 + lora), w0 from -6 to -1 over the channels)."""
+    B, S, H, K, V = dims
     rs = np.random.RandomState(seed)
     f = lambda *shape: rs.randn(*shape).astype(np.float32)
     q, k, v, dy = f(B, S, H, K), f(B, S, H, K), f(B, S, H, V), f(B, S, H, V)
@@ -71,10 +76,19 @@ def _draw(seed, form, *, with_u, with_s0, with_ds, la="wide"):
     z = f(*shape)
     if la == "wide":
         lav = -np.exp(1.5 * z)
+    elif la == "init" and form == "head":
+        dt0 = np.exp(rs.uniform(np.log(1e-3), np.log(0.1), H))
+        dt_bias = dt0 + np.log(-np.expm1(-dt0))
+        lav = -rs.uniform(1.0, 16.0, H) * np.log1p(np.exp(0.5 * z + dt_bias))
+    elif la == "init":
+        n = np.arange(H * K).reshape(H, K) / (H * K - 1)
+        lav = -np.exp(-6.0 + 5.0 * n ** 1.35 + 0.1 * z)
     elif form == "head":
         lav = -np.log1p(np.exp(z))
     else:
         lav = -np.exp(0.5 * z - 0.6)
+    if la == "clamp":
+        lav = np.where(z < -1.0, ls_ref.LOG_A_MIN, lav)
     u = f(H, K) if with_u else None
     s0 = f(B, H, K, V) if with_s0 else None
     ds = f(B, H, K, V) if with_ds else None
@@ -146,6 +160,89 @@ def test_plain_backward_rounds_to_the_input_dtype():
         assert torch.equal(g, w.to(g.dtype))
 
 
+# ------------------------------- the bf16 route's algebra, chunk by chunk ---
+
+CHUNKED_EXTRAS = {"none": (False, False, False), "u": (True, False, False),
+                  "s0": (False, True, False), "ds": (False, False, True),
+                  "all": (True, True, True)}
+
+
+@pytest.mark.parametrize("Sc", [1, ls_ref.CHUNK - 1, ls_ref.CHUNK + 1, 77])
+@pytest.mark.parametrize("extras", list(CHUNKED_EXTRAS))
+@pytest.mark.parametrize("cur", [True, False])
+@pytest.mark.parametrize("form", ["dim", "head"])
+def test_chunked_backward_equals_plain_float64(form, cur, extras, Sc):
+    """``ref.recurrence_bwd_chunked`` in float64 (edge states, each chunk
+    alone, dla from its four parts) against ``ref.recurrence_bwd``: both
+    exact, summed in other orders, so 1e-10 of each gradient's scale; K,
+    V = 12, 40; S within one chunk, one step short of and past one, and
+    three chunks; log-decays spread below the clamp and, per head, below
+    -20.  Where dla's exact value is 0 (S = 1, no initial state) both
+    sides are rounding, so its scale is floored at its query terms'."""
+    with_u, with_s0, with_ds = CHUNKED_EXTRAS[extras]
+    q, k, v, la, u, s0, dy, ds = (_t(x) for x in _draw(
+        100 + Sc + 7 * len(extras), form, with_u=with_u, with_s0=with_s0, with_ds=with_ds,
+        dims=(2, Sc, 3, 12, 40)))
+    if form == "head" and Sc > 1:
+        assert float(la.min()) < -20
+    want = ls_ref.recurrence_bwd(q, k, v, la, u, dy, ds, include_current=cur, initial_state=s0)
+    got = ls_ref.recurrence_bwd_chunked(q, k, v, la, u, dy, ds, include_current=cur,
+                                        initial_state=s0, dtype=torch.float64)
+    terms = q * want[0]
+    terms = terms.sum(-1) if form == "head" else terms
+    for name, g, w in zip(NAMES, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        scale = float(w.abs().max())
+        if name == "dla":
+            scale = max(scale, float(terms.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-10 * scale, name
+
+
+# (B, S, H, K, V, form, la): zamba2_7b's smoke Mamba2 layer (16 heads of
+# 32, state 16) with log-decays spread below -20, and rwkv6_3b's smoke
+# layer (4 heads of 32) with a sixth of them at the clamp; each also with
+# its decays as initialised, which carry states across all 16 chunks
+FP32_CASES = {"zamba2": ((2, 512, 16, 16, 32), "head", "wide"),
+              "rwkv6": ((2, 512, 4, 32, 32), "dim", "clamp"),
+              "zamba2_init": ((2, 512, 16, 16, 32), "head", "init"),
+              "rwkv6_init": ((2, 512, 4, 32, 32), "dim", "init")}
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("case", list(FP32_CASES))
+def test_chunked_backward_in_fp32_needs_no_float64(case, split):
+    """The bf16 route's algebra in fp32 against the float64 plain
+    backward: dla, and each head's sum over (b, t) of dla la (Mamba2's
+    A_log gradient, la = -exp(A_log) softplus(dt); per dim each (head,
+    dim)'s, rwkv6's w0 gradient).  Without ``split``
+    within 1e-4 and 1e-5 of their scale, ten times under the 1.04e-4
+    that the identity over the whole sequence left in fp32; with
+    ``split`` (each tensor-core operand as bf16 hi + lo) within 1e-3 and
+    1e-4, the bars the card's kernel is held to."""
+    dims, form, la_kind = FP32_CASES[case]
+    cur = form == "head"
+    q, k, v, la, u, s0, dy, ds = (_t(x, torch.float32) for x in _draw(
+        7, form, with_u=not cur, with_s0=False, with_ds=False, la=la_kind, dims=dims))
+    if la_kind == "wide":
+        assert float(la.min()) < -20
+    elif la_kind == "clamp":
+        assert 0.1 < float((la == ls_ref.LOG_A_MIN).float().mean()) < 0.25
+    else:     # some decays keep more than half a state over a chunk
+        assert float(la.max()) * ls_ref.CHUNK > -0.7
+    want = ls_ref.recurrence_bwd(q, k, v, la, u, dy, ds, include_current=cur)[3].double()
+    got = ls_ref.recurrence_bwd_chunked(q, k, v, la, u, dy, ds, include_current=cur,
+                                        split=split)[3]
+    assert got.dtype == torch.float32
+    got = got.double()
+    tol_dla, tol_sum = (1e-3, 1e-4) if split else (1e-4, 1e-5)
+    scaled_close(got, want, tol_dla, "dla")
+    scaled_close((got * la.double()).sum((0, 1)), (want * la.double()).sum((0, 1)), tol_sum,
+                 "sum of dla la")
+
+
 # --------------------------------------------- against the reference's vjp ---
 
 # form, include_current, u, initial state, final state's gradient, la.
@@ -162,13 +259,15 @@ JAX_CASES = {
 }
 
 
+@pytest.mark.parametrize("plain", ["recurrence_bwd", "recurrence_bwd_chunked"])
 @pytest.mark.parametrize("case", list(JAX_CASES))
-def test_plain_backward_matches_reference_vjp(case):
-    """fp32: ``ref.recurrence_bwd`` against ``jax.vjp`` of the reference's
-    chunked ``linear_recurrence`` (chunk 8) on the same numpy inputs.
-    "rwkv6_clamped" puts a tenth of the log-decays below the clamp (each
-    chunk's summed decay stays above -88 at chunk 8, where the
-    reference's factorised form is finite)."""
+def test_plain_backward_matches_reference_vjp(case, plain):
+    """fp32: ``ref.recurrence_bwd`` (the fp32 route's arithmetic) and
+    ``ref.recurrence_bwd_chunked`` (the bf16 route's, in fp32) against
+    ``jax.vjp`` of the reference's chunked ``linear_recurrence`` (chunk 8)
+    on the same numpy inputs.  "rwkv6_clamped" puts a tenth of the
+    log-decays below the clamp (each chunk's summed decay stays above -88
+    at chunk 8, where the reference's factorised form is finite)."""
     form, cur, with_u, with_s0, with_ds, la_kind = JAX_CASES[case]
     q, k, v, la, u, s0, dy, ds = _draw(20 + len(case), form, with_u=with_u, with_s0=with_s0,
                                        with_ds=with_ds, la="wide" if la_kind == "clamp" else "mild")
@@ -199,7 +298,7 @@ def test_plain_backward_matches_reference_vjp(case):
                               include_current=cur, initial_state=_t(s0, torch.float32))
     scaled_close(y, jy, 1e-4, "y")
     scaled_close(st, jst, 1e-4, "final state")
-    got = dict(zip(NAMES, ls_ref.recurrence_bwd(
+    got = dict(zip(NAMES, getattr(ls_ref, plain)(
         *(_t(x, torch.float32) for x in (q, k, v, la, u, dy, ds)), include_current=cur,
         initial_state=_t(s0, torch.float32))))
     for name, w in want.items():
@@ -328,43 +427,90 @@ def cuda():
 
 
 GPU_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+BF16_F32_OUT_TOL = 1e-3   # bf16 inputs: dla, du and d_initial_state, fp32 outputs
+BF16_DECAY_SUM_TOL = 1e-4  # bf16 inputs: the sum of dla la over (b, t), the decay's gradient
+CHUNK = ls_ref.CHUNK      # the bf16 route's chunk
 
 
-def _card_case(cuda, seed, Bc, Sc, Hc, Kc, Vc, form, dtype, with_s0, with_ds):
+# form -> (per-head la, include_current): the models' two, and the other
+# two pairings the kernels also take
+CARD_FORMS = {"rwkv6": (False, False), "mamba2": (True, True), "dim_current": (False, True),
+              "head_bonus": (True, False)}
+
+
+def _card_case(cuda, seed, Bc, Sc, Hc, Kc, Vc, form, dtype, with_s0, with_ds, la_kind="wide"):
+    """Inputs on the card.  ``la_kind`` "wide": -exp(1.5 z), per head
+    spread below -20, per dim a tenth below the clamp; "clamp": every
+    log-decay at the clamp, -8; "init": the decays as the models are
+    initialised in their papers, which carry states across many chunks
+    (Mamba2: -A softplus(dt_proj + dt_bias), A in [1, 16] and
+    softplus(dt_bias) in [1e-3, 0.1] a head; rwkv6: -exp(w0 + lora),
+    w0 from -6 to -1 over the channels)."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     dt = getattr(torch, dtype)
     r = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
-    if form == "mamba2":      # C and B broadcast over the heads, per-head la spread below -20
+    head, cur = CARD_FORMS[form]
+    if head:                  # C and B broadcast over the heads
         q, k = (r(Bc, Sc, Kc).to(dt)[:, :, None].expand(Bc, Sc, Hc, Kc) for _ in range(2))
         la = -torch.exp(1.5 * r(Bc, Sc, Hc))
-    else:                     # rwkv6: per-dim la, a tenth below the clamp
+    else:
         q, k = r(Bc, Sc, Hc, Kc).to(dt), r(Bc, Sc, Hc, Kc).to(dt)
         la = -torch.exp(1.5 * r(Bc, Sc, Hc, Kc))
+    if la_kind == "clamp":
+        la = torch.full_like(la, ls_ref.LOG_A_MIN)
+    elif la_kind == "init" and head:
+        uni = lambda lo, hi: lo + (hi - lo) * torch.rand(Hc, generator=g, device=cuda)
+        dt0 = torch.exp(uni(np.log(1e-3), np.log(0.1)))
+        dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+        la = -uni(1.0, 16.0) * torch.nn.functional.softplus(0.5 * r(Bc, Sc, Hc) + dt_bias)
+    elif la_kind == "init":
+        n = torch.arange(Hc * Kc, device=cuda).reshape(Hc, Kc) / (Hc * Kc - 1)
+        la = -torch.exp(-6.0 + 5.0 * n ** 1.35 + 0.1 * r(Bc, Sc, Hc, Kc))
     v, dy = r(Bc, Sc, Hc, Vc).to(dt), r(Bc, Sc, Hc, Vc).to(dt)
-    u = r(Hc, Kc) if form == "rwkv6" else None
+    u = r(Hc, Kc) if not cur else None
     s0 = r(Bc, Hc, Kc, Vc) if with_s0 else None
     ds = r(Bc, Hc, Kc, Vc) if with_ds else None
     return q, k, v, la, u, s0, dy, ds
 
 
+def _bwd_cases():
+    """(Bc, Sc, Hc, Kc, Vc, with_s0, with_ds, form, la_kind): the models'
+    two forms at five shapes with la spread wide; three chunks at the
+    clamp, the last one step long, each decayed to exp(-256) across; the
+    two pairings no model uses at K, V = 20, 36 (zero-padded to 24, 40 on
+    the bf16 route); and both forms over 32 chunks with the decays as
+    the models are initialised."""
+    shapes = [(2, 1, 3, 64, 64, False, False), (2, 33, 3, 64, 64, True, True),
+              (1, 1000, 5, 64, 64, True, False), (3, 77, 4, 12, 40, False, True),
+              (2, 1024, 40, 64, 64, False, False)]
+    cases = [pytest.param(*s, form, "wide", id="-".join(map(str, (*s, form))))
+             for form in ("rwkv6", "mamba2") for s in shapes]
+    extra = [(2, 2 * CHUNK + 1, 3, 64, 64, True, True, "rwkv6", "clamp"),
+             (2, 77, 3, 20, 36, True, True, "dim_current", "wide"),
+             (2, 77, 3, 20, 36, True, True, "head_bonus", "wide"),
+             (2, 1024, 8, 64, 64, True, True, "rwkv6", "init"),
+             (2, 1024, 8, 64, 64, True, True, "mamba2", "init")]
+    return cases + [pytest.param(*c, id="-".join(map(str, c))) for c in extra]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("form", ["rwkv6", "mamba2"])
-@pytest.mark.parametrize("Bc,Sc,Hc,Kc,Vc,with_s0,with_ds", [
-    (2, 1, 3, 64, 64, False, False), (2, 33, 3, 64, 64, True, True),
-    (1, 1000, 5, 64, 64, True, False), (3, 77, 4, 12, 40, False, True),
-    (2, 1024, 40, 64, 64, False, False)])
+@pytest.mark.parametrize("Bc,Sc,Hc,Kc,Vc,with_s0,with_ds,form,la_kind", _bwd_cases())
 def test_gpu_linear_scan_backward_matches_plain(cuda, Bc, Sc, Hc, Kc, Vc, with_s0, with_ds,
-                                                form, dtype):
+                                                form, la_kind, dtype):
     """The backward kernel (``_launch_bwd``) against ``ref.recurrence_bwd``
-    on the same inputs, every gradient within GPU_TOL of its scale; a
-    second launch gives the same bits.  dla is a sum of query terms q dq
-    less key terms k dk, which cancel exactly where y does not depend on
-    la (S = 1 with no initial state): both sides are then rounding, so
-    its scale is floored at its terms' own."""
+    on the same inputs, every gradient within GPU_TOL of its scale, and
+    with bf16 inputs the fp32 outputs (dla, du, d_initial_state) within
+    BF16_F32_OUT_TOL and, where S > 1, the sum over (b, t) of dla la a
+    head (per dim: a (head, dim); the gradient of Mamba2's A_log or
+    rwkv6's w0) within BF16_DECAY_SUM_TOL of the float64 plain
+    version's; a second launch gives the same bits.  dla is a sum of
+    query terms q dq less key terms k dk, which cancel exactly where y
+    does not depend on la (S = 1 with no initial state): both sides are
+    then rounding, so its scale is floored at its terms' own."""
     q, k, v, la, u, s0, dy, ds = _card_case(cuda, Sc + Kc, Bc, Sc, Hc, Kc, Vc, form, dtype,
-                                            with_s0, with_ds)
-    cur = form == "mamba2"
+                                            with_s0, with_ds, la_kind)
+    cur = CARD_FORMS[form][1]
     before = ls_ops.bwd_launches
     got = ls_ops._launch_bwd(q, k, v, la, u, dy, ds, cur, s0)
     again = ls_ops._launch_bwd(q, k, v, la, u, dy, ds, cur, s0)
@@ -382,7 +528,14 @@ def test_gpu_linear_scan_backward_matches_plain(cuda, Bc, Sc, Hc, Kc, Vc, with_s
         if name == "dla":
             scale = max(scale, float(terms.abs().max()))
         assert err <= GPU_TOL[dtype] * scale, (name, err, scale)
+        if dtype == "bfloat16" and name in ("dla", "du", "d_initial_state"):
+            assert err <= BF16_F32_OUT_TOL * scale, (name, err, scale)
         assert torch.equal(a, c), name
+    if dtype == "bfloat16" and Sc > 1:
+        want_sum = (want[3].double() * la.double()).sum((0, 1))
+        got_sum = (got[3].double() * la.double()).sum((0, 1))
+        err, scale = float((got_sum - want_sum).abs().max()), float(want_sum.abs().max())
+        assert err <= BF16_DECAY_SUM_TOL * scale, ("sum of dla la", err, scale)
 
 
 @pytest.mark.gpu
