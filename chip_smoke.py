@@ -61,9 +61,10 @@ drive the port's main paths through their public entry points.
    bridge over TCP (``transport="socket"``, vafl and afl) bit-equal to
    ``run(mode="event")`` with the same launches; thread workers over
    ``socket`` (vafl: events/s, busy share, ledgers; each worker's second
-   value reads its first gradient); seven ``spawn``ed process workers computing on the card
-   over ``socket`` (afl), each child counting its own encode launches
-   and sending them back on a queue (they sum to the accepted uploads;
+   value reads its first gradient); two ``spawn``ed process workers
+   computing on the card over ``socket`` (afl, clients 0 and 1), each
+   child counting its own encode launches and sending them back on a
+   queue (they sum to the accepted uploads;
    ``fl_wire_child_launches``), the card's busy share from
    ``nvidia-smi``; a process worker SIGKILLed after its first upload
    (the server returns within its stall timeout); the chaos soak (afl,
@@ -109,7 +110,16 @@ drive the port's main paths through their public entry points.
    steps; for the MoE models the gate holds on 2 x 8 tokens (one group
    at full capacity) and the 128-token reading, whose prefill drops
    (token, choice) pairs beyond capacity, is printed with its drop count
-   beside the serve prefill's drops and expert loads.
+   beside the serve prefill's drops and expert loads.  Then minicpm3_4b
+   (Multi-head Latent Attention: the expanded prefill through
+   flash_attention at q.k 96 / v 64, 62 launches; the absorbed decode over
+   the latent cache), llava_next_mistral_7b (32) and command_r_35b
+   (parallel blocks, 40; 60.6 GB in bf16, its fp32 gate on its first 4
+   layers drawn alone), the same way; llava also on its prefix path:
+   ``make_prefill_step`` with 1,152 stub prefix embeddings before the 4 x
+   2048 prompt, ``make_serve_step`` from position 3,200, and a prefix
+   prefill of n - 1 tokens plus one decode step gated against the prefill
+   of all n.
 
 Run it from the root of a checkout:
 
@@ -180,21 +190,39 @@ ENC_CASES = [("cnn", "randn"), ("mlp", "randn"), ("one", RESIDENT_LIMIT),
              ("one", RESIDENT_LIMIT + 1), ("one", 2 ** 24 + 123), ("cnn", "ties"),
              ("cnn", "sparse"), ("big", "ties"), ("big", "sparse")]
 TQ_OPS_PER_ELEM = 24             # 10 hash + 14 float/convert/select ops (csrc/topk_quant.cu)
-# flash_attention cases: (B, S, H, KV, hd, window, dtype); the first is
-# starcoder2_3b's prefill in serve(batch=4, prompt_len=2048), window 4096;
-# then a ragged S, a window shorter than S, fp32, and a large shape; then
-# zamba2_7b's shared attention in the same serve call (head_dim 112, no
-# GQA, causal), a ragged S, a window and fp32 at 112; then the MoE models'
-# prefills in the same serve call, causal: granite_moe_3b_a800m's GQA
-# 24/8 at 64 and qwen3_moe_30b_a3b's GQA 32/4 at 128
-FA_CASES = [(4, 2048, 24, 2, 128, 4096, "bfloat16"), (4, 1000, 24, 2, 128, 4096, "bfloat16"),
-            (4, 2048, 24, 2, 128, 256, "bfloat16"), (2, 1024, 24, 2, 128, None, "float32"),
-            (4, 4096, 24, 2, 128, 4096, "bfloat16"),
-            (4, 2048, 32, 32, 112, None, "bfloat16"), (4, 1000, 32, 32, 112, None, "bfloat16"),
-            (4, 2048, 32, 32, 112, 256, "bfloat16"), (2, 1024, 32, 32, 112, None, "float32"),
-            (4, 2048, 24, 8, 64, None, "bfloat16"), (4, 2048, 32, 4, 128, None, "bfloat16")]
+# flash_attention cases: (B, S, H, KV, hd, dv, window, dtype), hd the q
+# and k head dim, dv v's; the first is starcoder2_3b's prefill in
+# serve(batch=4, prompt_len=2048), window 4096; then a ragged S, a window
+# shorter than S, fp32, and a large shape; then zamba2_7b's shared
+# attention in the same serve call (head_dim 112, no GQA, causal), a
+# ragged S, a window and fp32 at 112; then the MoE models' prefills in the
+# same serve call, causal: granite_moe_3b_a800m's GQA 24/8 at 64 and
+# qwen3_moe_30b_a3b's GQA 32/4 at 128; then minicpm3_4b's MLA prefill in
+# the same serve call (q.k 96, v 64, no GQA, causal), fp32 and a ragged S
+# at that pair, its smoke width's (48, 32) in both dtypes;
+# llava_next_mistral_7b's prefix prefill (1,152 prefix embeddings + 2,048
+# tokens, GQA 32/8 at 128) and its text-only serve prefill; command_r_35b's
+# (GQA 64/8 at 128)
+FA_CASES = [(4, 2048, 24, 2, 128, 128, 4096, "bfloat16"),
+            (4, 1000, 24, 2, 128, 128, 4096, "bfloat16"),
+            (4, 2048, 24, 2, 128, 128, 256, "bfloat16"), (2, 1024, 24, 2, 128, 128, None, "float32"),
+            (4, 4096, 24, 2, 128, 128, 4096, "bfloat16"),
+            (4, 2048, 32, 32, 112, 112, None, "bfloat16"),
+            (4, 1000, 32, 32, 112, 112, None, "bfloat16"),
+            (4, 2048, 32, 32, 112, 112, 256, "bfloat16"),
+            (2, 1024, 32, 32, 112, 112, None, "float32"),
+            (4, 2048, 24, 8, 64, 64, None, "bfloat16"), (4, 2048, 32, 4, 128, 128, None, "bfloat16"),
+            (4, 2048, 40, 40, 96, 64, None, "bfloat16"), (2, 1024, 40, 40, 96, 64, None, "float32"),
+            (4, 1000, 40, 40, 96, 64, None, "bfloat16"), (2, 77, 4, 4, 48, 32, None, "bfloat16"),
+            (2, 77, 4, 4, 48, 32, None, "float32"),
+            (4, 3200, 32, 8, 128, 128, None, "bfloat16"), (4, 2048, 32, 8, 128, 128, None, "bfloat16"),
+            (4, 2048, 64, 8, 128, 128, None, "bfloat16")]
+# each served model's prefill shape; llava's the prefix path's (the serve
+# row, "llava_serve", its text-only serve call's)
 FA_MODEL = {"zamba2_7b": FA_CASES[5], "granite_moe_3b_a800m": FA_CASES[9],
-            "qwen3_moe_30b_a3b": FA_CASES[10]}
+            "qwen3_moe_30b_a3b": FA_CASES[10], "minicpm3_4b": FA_CASES[11],
+            "llava_next_mistral_7b": FA_CASES[16], "llava_serve": FA_CASES[17],
+            "command_r_35b": FA_CASES[18]}
 FA_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # linear_scan cases: (B, S, H, K, V, form, la, initial state); the first
 # is rwkv6_3b's prefill in serve(batch=4, prompt_len=2048): bf16 r/k/v,
@@ -245,6 +273,10 @@ DESIGN = {("flash_attention", "bfloat16"): "mma.sync m16n8k16 bf16, cp.async 2-s
                                            "128-query x 64-key tiles (8 warps x 16 rows), Q and P "
                                            "in registers, raw-score softmax on ex2.approx",
           ("flash_attention", "float32"): "fp32 FMA on the CUDA cores, 64 x 64 tiles",
+          ("flash_attention", "unequal"): "template instances at (q.k, v) = (96, 64) and (48, 32): "
+                                          "Q and K rows at DQK + 8, V and O at DV + 8, DQK / 16 "
+                                          "k-steps of Q K^T, DV / 8 n-tiles of O (bf16); V tiles "
+                                          "of DV columns (fp32)",
           ("grad_diff_norm", "float32"): "one launch over a table of stacked leaves, 16-byte "
                                          "loads inside a leaf, the last block of a row sums its "
                                          "partials (integer ticket), no float atomics",
@@ -301,8 +333,9 @@ TC_FUNCS = {"flash_attention": ("flash_fwd_bf16",), "linear_scan": ("scan_bf16",
 SERVE = dict(batch=4, prompt_len=2048, gen=32)
 CONSISTENCY_LEN = 128            # prefill vs stepwise decode at full width
 MOE_GATE_LEN = 8                 # an MoE model's gated check: 2 x 8 tokens, nothing drops
-MOE_FP32_LAYERS = 4              # qwen3_moe's fp32 check: its first 4 layers, 11.6 GiB in fp32
 MOE_BF16_LAYERS = 1              # an MoE model's bf16 gate: its first layer (_moe_bf16)
+FP32_CUT_LAYERS = 4              # a bf16-served model's fp32 gate: its first 4 layers drawn
+                                 # alone (qwen3_moe 11.6 GiB, command_r_35b 19.7 GB in fp32)
 # zamba2_7b's fp32 prefill-vs-stepwise gap is also read at (depth, the
 # decode KV cache's dtype): the first 12 layers and the full 81, with the
 # serving default's bf16 cache and with an fp32 one
@@ -693,42 +726,55 @@ def _flash_attention_cases(rows: list):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for B, S, H, KV, hd, window, dtype in FA_CASES:
+    for case in FA_CASES:
+        B, S, H, KV, hd, dv, window, dtype = case
         dt = getattr(torch, dtype)
         q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
         k = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
-        v = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
+        v = torch.randn(B, S, KV, dv, generator=gen, device="cuda").to(dt)
         got = ops.gqa_flash_attention(q, k, v, window=window)
         want = ref.gqa_attention(q, k, v, window=window)
         torch.cuda.synchronize()
         tol = FA_TOL[dtype]
         err = float((got.float() - want.float()).abs().max())
-        case = f"(B {B}, S {S}, H {H}, KV {KV}, hd {hd}, window {window}) {dtype}"
-        if not (bool(torch.isfinite(got).all())
+        dims = f"hd {hd}" if dv == hd else f"q.k {hd} / v {dv}"
+        text = f"(B {B}, S {S}, H {H}, KV {KV}, {dims}, window {window}) {dtype}"
+        if not (tuple(got.shape) == (B, S, H, dv) and bool(torch.isfinite(got).all())
                 and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)):
-            fail(f"flash_attention {case}: max abs err {err:.3g} beyond rtol = atol = {tol}")
-        say(f"[check] flash_attention {case}: max abs err {err:.6g} (rtol = atol = {tol})")
+            fail(f"flash_attention {text}: max abs err {err:.3g} beyond rtol = atol = {tol}")
+        say(f"[check] flash_attention {text}: max abs err {err:.6g} (rtol = atol = {tol})")
         esize = got.element_size()
-        nbytes = B * S * (2 * H + 2 * KV) * hd * esize      # q, k, v read, o written
-        nops = 4 * hd * _pairs(S, window) * B * H           # q.k and p.v, 2 ops a multiply-add
+        # q, k read at hd, v read and o written at dv; q.k^T at hd and p.v
+        # at dv over the causal pairs, 2 operations a multiply-add
+        nbytes = B * S * ((H + KV) * hd + (KV + H) * dv) * esize
+        nops = 2 * _pairs(S, window) * B * H * (hd + dv)
         bms, bby = bound_ms(nbytes, nops, BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S)
         causal_only = window is None or window >= S         # the function SDPA computes
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = (cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                              enable_gqa=True), 20, 3)
-               if causal_only else None)
+        lib, lib_note = None, None
+        if causal_only:
+            # SDPA takes v narrower than q and k (Ev != E) on some of its
+            # backends; where it refuses, the row says so
+            try:
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                     enable_gqa=True), 20, 3)
+            except RuntimeError as e:
+                lib_note = f"SDPA refused this call: {str(e).splitlines()[0][:160]}"
         rows.append({
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
-            "shape": [B, S, H, KV, hd], "window": window, "dtype": dtype,
-            "design": DESIGN[("flash_attention", dtype)], "max_abs_err": err, "tol": tol,
+            "shape": [B, S, H, KV, hd], "dv": dv, "window": window, "dtype": dtype,
+            "case": case,
+            "design": DESIGN[("flash_attention", dtype)] + (
+                "; " + DESIGN[("flash_attention", "unequal")] if dv != hd else ""),
+            "max_abs_err": err, "tol": tol,
             "ms": cuda_ms(lambda: ops.gqa_flash_attention(q, k, v, window=window), 20, 3),
             "plain_ms": cuda_ms(lambda: ref.gqa_attention(q, k, v, window=window), 10, 2),
             "bound_ms": bms, "bound_by": bby, "bound_bytes": nbytes, "bound_ops": nops,
             "library_ms": lib,
             "library_call": ("F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
-                             if causal_only else None)})
+                             if lib is not None else lib_note)})
         del q, k, v, got, want
     torch.cuda.empty_cache()
 
@@ -1058,7 +1104,8 @@ def _cut_depth(cfg, params, depth: int) -> tuple:
     fail(f"{cfg.name}: depth {depth} beyond its {cfg.num_layers} layers")
 
 
-def phase_serve(arch: str, check_dtype: str, readings: tuple = ()) -> dict:
+def phase_serve(arch: str, check_dtype: str, readings: tuple = (), fp32_layers: int = 0,
+                prefix: bool = False) -> dict:
     """serve() at the architecture's full configuration, then a full-width
     check of prefill (the kernel path) against stepwise decode (plain
     PyTorch) over the bf16 KV cache serving uses, gated at 2e-2 of the
@@ -1066,11 +1113,19 @@ def phase_serve(arch: str, check_dtype: str, readings: tuple = ()) -> dict:
     ``readings``, (depth, cache dtype): the first layers of the same
     weights, and the decode cache's dtype.  The weights are drawn in
     ``check_dtype``, each leaf cast as it is drawn (``init_params(dtype=)``:
-    qwen3_moe_30b_a3b's fp32 draw would not fit the card).
+    qwen3_moe_30b_a3b's and command_r_35b's fp32 draws would not fit the
+    card).  With ``fp32_layers`` the first that many layers are first
+    drawn alone in fp32 (the same draws as the full model's first layers)
+    and gated in fp32 before the full draw.  With ``prefix`` (the VLM
+    stub; ``check_dtype`` fp32) the fp32 draw is also gated on the prefix
+    path (``_prefix_gate``) and the served weights run it
+    (``_prefix_path``).
 
     An MoE model's checks are ``_moe_bf16``'s, on the served bf16
-    weights, and ``_moe_stepwise``'s: gated on a prompt of 2 x
-    ``MOE_GATE_LEN`` tokens, one group at full capacity, in fp32; a
+    weights, and ``_moe_stepwise``'s on the fp32 weights (the fp32 draw,
+    or the ``fp32_layers`` drawn alone for a model drawn in bf16): gated
+    on a prompt of 2 x ``MOE_GATE_LEN`` tokens, one group at full
+    capacity, in fp32; a
     prefill of 2 x CONSISTENCY_LEN tokens drops (token, choice) pairs
     beyond the capacity that the reference's contract gives a 256-token
     group, and decode, one group of 2 tokens, drops none, so there the two
@@ -1087,7 +1142,39 @@ def phase_serve(arch: str, check_dtype: str, readings: tuple = ()) -> dict:
 
     cfg = get_config(arch)
     moe = cfg.moe is not None
+    gaps = {}
+    has_kv = any(kind in ("attn", "shared_attn") for kind in cfg.pattern())
+
+    def check(c, p, cache_dtype="bfloat16", what="", compute=check_dtype):
+        cc = c.replace(compute_dtype=compute)
+        if moe:
+            gaps.update(_moe_stepwise(arch, cc, p, what))
+            return
+        kv = f", {cache_dtype} {'latent' if c.mla else 'KV'} cache" if has_kv else ""
+        err, scale = _prefill_vs_stepwise(cc, p, cache_dtype)
+        gaps[f"{c.num_layers} layers{what}, {compute}{kv}"] = err / scale
+        say(f"[serve] {arch}: prefill of {CONSISTENCY_LEN} tokens vs {CONSISTENCY_LEN} "
+            f"decode_step calls at full width, {c.num_layers} layers{what}, "
+            f"{cc.compute_dtype} compute{kv}: last-position logits max abs diff {err:.4g} of "
+            f"scale {scale:.4g} ({err / scale:.3g}; limit 2e-2)")
+        if not err <= 2e-2 * scale:
+            fail(f"{arch}: prefill vs stepwise decode {err:.4g} apart at {c.num_layers} layers, "
+                 f"beyond 2e-2 x {scale:.4g}")
+
+    if moe and check_dtype != "float32" and not fp32_layers:
+        fail(f"{arch}: an MoE model drawn in {check_dtype} needs fp32_layers for its fp32 gate")
     torch.cuda.reset_peak_memory_stats()
+    if fp32_layers:
+        cut = cfg.replace(num_layers=fp32_layers, compute_dtype="float32")
+        h0 = time.perf_counter()
+        p32 = decoder.init_params(cut, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        say(f"[serve] {arch}: reduced: its first {fp32_layers} of {cfg.num_layers} layers drawn "
+            f"alone in float32 ({sum(x.numel() for x in tree_leaves(p32))} parameters: the full "
+            f"draw's embedding and first layers, unrounded) in {time.perf_counter() - h0:.1f} s")
+        check(cut, p32, what=" (drawn alone)", compute="float32")
+        del p32
+        torch.cuda.empty_cache()
     h0 = time.perf_counter()
     params = decoder.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                                  dtype=getattr(torch, check_dtype))
@@ -1097,34 +1184,24 @@ def phase_serve(arch: str, check_dtype: str, readings: tuple = ()) -> dict:
         f"({cfg.num_kv_heads} kv) of {cfg.head_dim}"
         + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff "
            f"{cfg.moe.d_ff_expert}" if moe else f", d_ff {cfg.d_ff}")
-        + f"{', qk-norm' if cfg.qk_norm else ''}, vocab {cfg.vocab_size}: {n_params} parameters "
+        + f"{', qk-norm' if cfg.qk_norm else ''}"
+        + (f", MLA q_lora {cfg.mla.q_lora_rank}, kv_lora {cfg.mla.kv_lora_rank}, q.k "
+           f"{cfg.mla.qk_nope_head_dim} + {cfg.mla.qk_rope_head_dim}, v {cfg.mla.v_head_dim}"
+           if cfg.mla else "")
+        + (", parallel attention + FFN blocks" if cfg.parallel_block else "")
+        + (f", {cfg.frontend.num_prefix_tokens} {cfg.frontend.kind} prefix embeddings"
+           if cfg.frontend else "")
+        + f", vocab {cfg.vocab_size}: {n_params} parameters "
         f"drawn in {cfg.param_dtype}"
         + (f", each leaf cast to {check_dtype} as drawn" if check_dtype != cfg.param_dtype else "")
         + f", in {time.perf_counter() - h0:.1f} s")
-
-    gaps = {}
-    has_kv = any(kind in ("attn", "shared_attn") for kind in cfg.pattern())
-
-    def check(c, p, cache_dtype="bfloat16"):
-        cc = c.replace(compute_dtype=check_dtype)
-        if moe:
-            gaps.update(_moe_stepwise(arch, cc, p))
-            return
-        kv = f", {cache_dtype} KV cache" if has_kv else ""
-        err, scale = _prefill_vs_stepwise(cc, p, cache_dtype)
-        gaps[f"{c.num_layers} layers{kv}"] = err / scale
-        say(f"[serve] {arch}: prefill of {CONSISTENCY_LEN} tokens vs {CONSISTENCY_LEN} "
-            f"decode_step calls at full width, {c.num_layers} layers, {check_dtype} compute{kv}: "
-            f"last-position logits max abs diff {err:.4g} of scale {scale:.4g} "
-            f"({err / scale:.3g}; limit 2e-2)")
-        if not err <= 2e-2 * scale:
-            fail(f"{arch}: prefill vs stepwise decode {err:.4g} apart at {c.num_layers} layers, "
-                 f"beyond 2e-2 x {scale:.4g}")
 
     if check_dtype == "float32":
         check(cfg, params)
         for depth, cache_dtype in readings:
             check(*_cut_depth(cfg, params, depth), cache_dtype)
+        if prefix:
+            gaps.update(_prefix_gate(arch, cfg, params))
     params = decoder.cast_params(cfg, params)       # once; the fp32 draws are freed here
     leaves = tree_leaves(params)
     nbytes = sum(x.numel() * x.element_size() for x in leaves)
@@ -1175,7 +1252,9 @@ def phase_serve(arch: str, check_dtype: str, readings: tuple = ()) -> dict:
             f"{read_bytes / 1e9:.2f} GB, a bound of {out['decode_bound_ms']:.3f} ms a step "
             f"against {stats['decode_s'] / SERVE['gen'] * 1e3:.3f} ms")
         gaps.update(_moe_bf16(arch, cfg, params))
-    if check_dtype == "bfloat16":
+    if prefix:
+        out["prefix"] = _prefix_path(arch, cfg, params)
+    if check_dtype == "bfloat16" and not moe:
         check(cfg, params)
     peak = torch.cuda.max_memory_allocated() / 1e9
     del params, leaves
@@ -1184,27 +1263,136 @@ def phase_serve(arch: str, check_dtype: str, readings: tuple = ()) -> dict:
                 stepwise_gap_by_depth=gaps, **out)
 
 
-def _moe_stepwise(arch, cfg, params) -> dict:
-    """An MoE model's prefill-vs-stepwise check, in fp32 compute over an
-    fp32 KV cache (the cache then holds what the prefill attends to, so
-    the two paths compute one function), gated at 2e-2 of the logits'
-    scale on 2 x ``MOE_GATE_LEN`` tokens, one group at full capacity.  A
-    model in bf16 (qwen3_moe_30b_a3b: its fp32 tree would not fit) is
-    checked on an fp32 copy of its first ``MOE_FP32_LAYERS`` layers.  Not
-    gated: an fp32 model over serving's bf16 cache (it rounds decode's k
-    and v alone, and the rounding moves the router's choices), and 2 x
-    CONSISTENCY_LEN tokens, whose prefill drops (token, choice) pairs
-    beyond capacity where decode drops none.  Returns the gaps by
-    reading."""
-    from repro_torch.common.pytree import tree_map
+def _prefix_inputs(cfg, batch: int) -> tuple:
+    """The VLM stub's inputs: ``cfg.frontend.num_prefix_tokens`` prefix
+    embeddings, 0.02 N(0, 1) from a seeded generator as the reference
+    draws stub embeddings, in the compute dtype, and serve()'s prompt
+    (``np.random.RandomState(0)``) of SERVE's prompt_len tokens."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    prefix = 0.02 * torch.randn(batch, cfg.frontend.num_prefix_tokens, cfg.d_model,
+                                generator=gen, device="cuda")
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(batch, SERVE["prompt_len"]))).to("cuda")
+    return prefix.to(getattr(torch, cfg.compute_dtype)), tokens
+
+
+def _prefix_gap(cfg, params, prefix, tokens, whole=None) -> tuple:
+    """A prefix prefill (``make_prefill_step``) of the first n - 1 of
+    ``tokens`` and one ``make_serve_step`` of the last at position
+    prefix + n - 1 (plain PyTorch over serving's bf16 KV cache), against
+    the last logits of the prefix prefill of all n (``whole``, computed
+    here unless given): (max abs difference, scale = max |stepwise
+    logits|)."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    P, n = prefix.shape[1], tokens.shape[1]
+    prefill_fn = make_prefill_step(cfg, fill_cache=True, cache_len=P + n)
+    if whole is None:
+        whole = prefill_fn(params, {"tokens": tokens, "prefix_embeds": prefix})[0][:, -1]
+    _, cache = prefill_fn(params, {"tokens": tokens[:, :-1], "prefix_embeds": prefix})
+    step, _ = make_serve_step(cfg)(params, cache, tokens[:, -1:], P + n - 1)
+    del cache
+    lw, ls = (x[..., :cfg.vocab_size].float() for x in (whole, step[:, -1]))
+    if not (bool(lw.isfinite().all()) and bool(ls.isfinite().all())):
+        fail(f"{cfg.name}: non-finite logits on the prefix path")
+    return float((lw - ls).abs().max()), float(ls.abs().max())
+
+
+def _prefix_gate(arch, cfg, params) -> dict:
+    """The prefix path's gate, in fp32 compute on the fp32 draw, batch 2:
+    ``_prefix_gap`` at the full prefix and prompt (1,152 + 2,048
+    positions), within 2e-2 of the logits' scale.  In fp32 the two paths
+    compute one function but for the bf16 KV cache decode reads."""
+    cfg = cfg.replace(compute_dtype="float32")
+    prefix, tokens = _prefix_inputs(cfg, 2)
+    err, scale = _prefix_gap(cfg, params, prefix, tokens)
+    P, n = prefix.shape[1], tokens.shape[1]
+    say(f"[serve] {arch}: prefix path gate: a prefix prefill of 2 x ({P} prefix embeddings + "
+        f"{n - 1} tokens) + one decode_step at position {P + n - 1} against the prefix prefill "
+        f"of all {n}, float32 compute, bfloat16 KV cache: last-position logits max abs diff "
+        f"{err:.4g} of scale {scale:.4g} ({err / scale:.3g}; limit 2e-2)")
+    if not err <= 2e-2 * scale:
+        fail(f"{arch}: prefix prefill + decode_step vs prefill {err:.4g} apart, beyond "
+             f"2e-2 x {scale:.4g}")
+    return {f"prefix path, {cfg.num_layers} layers, float32, bfloat16 KV cache": err / scale}
+
+
+def _prefix_path(arch, cfg, params) -> dict:
+    """The VLM stub's serving path on the served weights:
+    ``make_prefill_step`` on ``_prefix_inputs``' prefix embeddings before
+    serve()'s prompt (SERVE's batch x prompt_len tokens), then
+    ``make_serve_step`` greedily decoding SERVE's gen tokens from position
+    prefix + prompt_len, timed as serve() times its two halves; the
+    flash_attention launches of the run counted (one a layer, in the
+    prefill).  The same ``_prefix_gap`` as ``_prefix_gate``'s is read here
+    in bf16 and printed, not gated: on the H100 it sits at 0.0195 of the
+    scale, and 0.0190 with decode's attention scores, probabilities and
+    p·v kept in fp32 (``serve_gate_probe.py``), so the rest of the two
+    paths' bf16 rounding sets it (PERF.md §7).  Returns the times,
+    launches and that reading."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    B, T, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    prefix, tokens = _prefix_inputs(cfg, B)
+    P = prefix.shape[1]
+    prefill_fn = make_prefill_step(cfg, fill_cache=True, cache_len=P + T + G)
+    step_fn = make_serve_step(cfg)
+    batch = {"tokens": tokens, "prefix_embeds": prefix}
+    prefill_fn(params, batch)                       # warm-up at this length
+    torch.cuda.synchronize()
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    whole = logits[:, -1]
+    tok, out = torch.argmax(whole, dim=-1)[:, None], []
+    for t in range(P + T, P + T + G):
+        out.append(tok)
+        logits, cache = step_fn(params, cache, tok, t)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0 - t_prefill
+    launches = read()                               # read just after the prefix path
+    want = {k: (cfg.num_layers if k == "flash_attention" else 0) for k in launches}
+    if launches != want:
+        fail(f"{arch}: the prefix path's kernel launches {launches}, expected {want}")
+    toks = torch.cat(out, dim=1)
+    if not (bool(torch.isfinite(whole).all()) and bool(torch.isfinite(logits).all())
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size):
+        fail(f"{arch}: the prefix path gave non-finite logits or tokens out of the vocabulary")
+    del cache
+    err, scale = _prefix_gap(cfg, params, prefix, tokens, whole)
+    res = dict(prefill_s=t_prefill, decode_s=t_decode, decode_tok_per_s=B * G / t_decode,
+               launches=launches["flash_attention"], prefix=P, bf16_gap=err / scale)
+    say(f"[serve] {arch}: prefix path: make_prefill_step on {B} x ({P} prefix embeddings + {T} "
+        f"tokens) {t_prefill:.4f} s, make_serve_step x {G} from position {P + T} "
+        f"{t_decode:.4f} s ({res['decode_tok_per_s']:.2f} tok/s), flash_attention launches "
+        f"{launches['flash_attention']}, sample {toks[0, :8].tolist()}; a prefix prefill of "
+        f"{T - 1} tokens + one decode_step against the prefill of all {T}, {cfg.compute_dtype} "
+        f"compute, bfloat16 KV cache: max abs diff {err:.4g} of scale {scale:.4g} "
+        f"({err / scale:.3g}), not gated: the two paths' bf16 roundings differ over "
+        f"{cfg.num_layers} layers (gated in float32 above)")
+    return res
+
+
+def _moe_stepwise(arch, cfg, params, what="") -> dict:
+    """An MoE model's prefill-vs-stepwise check on fp32 weights (``cfg``
+    computes in fp32; a model served in bf16, qwen3_moe_30b_a3b, comes
+    here as its first layers drawn alone in fp32: ``phase_serve``'s
+    ``fp32_layers``), in fp32 compute over an fp32 KV cache (the cache
+    then holds what the prefill attends to, so the two paths compute one
+    function), gated at 2e-2 of the logits' scale on 2 x
+    ``MOE_GATE_LEN`` tokens, one group at full capacity.  Not gated: over
+    serving's bf16 cache (it rounds decode's k and v alone, and the
+    rounding moves the router's choices), and 2 x CONSISTENCY_LEN tokens,
+    whose prefill drops (token, choice) pairs beyond capacity where
+    decode drops none.  Returns the gaps by reading."""
     from repro_torch.models.moe import _capacity
     gaps = {}
     L = MOE_GATE_LEN
-    cut = cfg.compute_dtype != "float32"
-    if cut:
-        cfg, params = _cut_depth(cfg, params, MOE_FP32_LAYERS)
-        cfg, params = cfg.replace(compute_dtype="float32"), tree_map(lambda x: x.float(), params)
-    what = f"the first {MOE_FP32_LAYERS} layers of the same weights in fp32" if cut else "full width"
+    what = f"full width{what}"
     n = cfg.num_layers
     err, scale = _prefill_vs_stepwise(cfg, params, "float32", L)
     gaps[f"{n} layers, float32 KV cache"] = err / scale
@@ -1215,12 +1403,11 @@ def _moe_stepwise(arch, cfg, params) -> dict:
     if not err <= 2e-2 * scale:
         fail(f"{arch}: prefill vs stepwise decode {err:.4g} apart at {n} layers, beyond "
              f"2e-2 x {scale:.4g}")
-    if not cut:
-        err, scale = _prefill_vs_stepwise(cfg, params, "bfloat16", L)
-        gaps[f"{n} layers, bfloat16 KV cache (not gated)"] = err / scale
-        say(f"[serve] {arch}: the same over serving's bfloat16 KV cache: max abs diff {err:.4g} "
-            f"of scale {scale:.4g} ({err / scale:.3g}), not gated: decode alone reads k and v "
-            f"rounded to bf16, and the rounding moves the router's choices")
+    err, scale = _prefill_vs_stepwise(cfg, params, "bfloat16", L)
+    gaps[f"{n} layers, bfloat16 KV cache (not gated)"] = err / scale
+    say(f"[serve] {arch}: the same over serving's bfloat16 KV cache: max abs diff {err:.4g} "
+        f"of scale {scale:.4g} ({err / scale:.3g}), not gated: decode alone reads k and v "
+        f"rounded to bf16, and the rounding moves the router's choices")
     L = CONSISTENCY_LEN
     err, scale = _prefill_vs_stepwise(cfg, params, "float32", L)
     dropped, _ = _moe_dispatch(cfg, params, _check_prompt(cfg, L))
@@ -2353,6 +2540,8 @@ FL_WIRE_THREAD_ROUNDS = 2                        # the socket threads' vafl run:
                                                  # each worker's 2nd value reads its 1st gradient
 FL_WIRE_CHAOS_ROUNDS = 2                         # the chaos soak's laps: 14 events
 FL_WIRE_BRIDGE = ("vafl", "afl")                 # the bridge over TCP, held against the event run
+FL_WIRE_PROCESSES = 2                            # spawned process workers (clients 0 and 1): each
+                                                 # takes seconds to hold its CUDA context
 FL_WIRE_STALL = 3.0                              # stall timeout after the SIGKILL
 FL_WIRE_CHAOS = dict(drop=0.15, duplicate=0.1, reorder=0.1, blackout=0.03, blackout_s=0.3,
                      seed=11)
@@ -2471,8 +2660,9 @@ def _wire_lap(fed, cfg, transport, **kw):
 
 
 def _process_fleet(fed, cfg) -> dict:
-    """Seven process workers (``counting_client``) on the card over the
-    socket transport for ``cfg``: every child's encode launches there,
+    """A process worker (``counting_client``) a client of ``cfg`` (the
+    federation's first ``cfg.num_clients`` clients) on the card over the
+    socket transport: every child's encode launches there,
     the children's launches sum to the server's accepted uploads, and the
     byte ledgers reconcile.  The children start together: each waits
     for its init broadcast (up to ``KILL_TIMEOUT_S``), which the server
@@ -2553,6 +2743,7 @@ def _process_fleet(fed, cfg) -> dict:
             or sum(res.client_downlink_bytes) != c.downlink_bytes):
         fail("[fl-wire] the process fleet's byte ledgers do not reconcile with CommStats")
     return {"events_per_s": c.broadcasts / secs, "busy": smi.mean, "child_launches": child_tq,
+            "children": n,
             "builds": sum(x["builds"] for x in counts),
             "peak_gb": max(x["peak_gb"] for x in counts)}
 
@@ -2722,8 +2913,9 @@ def phase_fl_wire(cap, refs, fl_serve) -> dict:
     soak 2 (14 events): the bridge over TCP for vafl and afl bit-equal to
     ``run(mode="event")`` with the same launches; thread workers over
     ``socket`` (vafl: each worker's second event computes Eq. 1's value
-    from its first event's gradient); seven process workers on the card
-    over ``socket`` (afl), their launches counted in the children; a
+    from its first event's gradient); ``FL_WIRE_PROCESSES`` process
+    workers on the card over ``socket`` (afl, clients 0 and 1), their
+    launches counted in the children; a
     process worker SIGKILLed after its first upload; the chaos soak over
     ``inproc`` and ``socket``; the live HTTP plane.  Every launch counted
     here is a served run's; the children's come back separately."""
@@ -2767,7 +2959,8 @@ def phase_fl_wire(cap, refs, fl_serve) -> dict:
             or gd != t_events):
         fail("[fl-wire] the thread run over socket did not end whole or reconcile")
     out["threads"] = {"events_per_s": t_events / secs, "busy": share}
-    out["process"] = _process_fleet(fed, dataclasses.replace(base, algorithm="afl"))
+    out["process"] = _process_fleet(fed, dataclasses.replace(base, algorithm="afl",
+                                                             num_clients=FL_WIRE_PROCESSES))
     out["killed"] = _killed_worker(fed, dataclasses.replace(base, algorithm="afl"))
     out["chaos"] = _chaos_soak(fed, dataclasses.replace(base, algorithm="afl",
                                                         rounds=FL_WIRE_CHAOS_ROUNDS))
@@ -2844,6 +3037,10 @@ FA_BWD_OLD_MS = [21.8940, 5.3066, 22.3555, 5.3772, 3.2310, 1.1166, 3.2471, 1.139
 # gradient moves wq, wk and wv by their whole scale
 TRAIN_GRAD_TOL = 2e-2
 TRAIN_CHECK_SEEDS = (0, 1, 2)
+# the seeds whose step 1 also runs the four mixes of the two routes (not
+# gated: they say where a gap comes from); cut from all three seeds to
+# the first to make room for three more served models
+TRAIN_MIX_SEEDS = (0,)
 # the recurrent and MoE families in [train], each at its published width
 # with its depth cut (reduced): rwkv6_3b and granite_moe_3b_a800m to 2 of
 # 32 layers (TRAIN_CUT), zamba2_7b to its first 6 pattern entries (five
@@ -3176,8 +3373,8 @@ def phase_train_check() -> dict:
     step through the plain attention on the card, per leaf; with the
     mixes (kernel forward + plain backward, plain forward + kernel
     backward, and the plain or kernel forward + the fp32 route's
-    backward) and the plain route at fp32 compute, which say where a gap
-    comes from.  Each route's worst leaf is also read in bf16 ulps at
+    backward; ``TRAIN_MIX_SEEDS`` only) and the plain route at fp32
+    compute, which say where a gap comes from.  Each route's worst leaf is also read in bf16 ulps at
     its worst entry, with the share of that leaf's entries that differ
     from the plain route's.  A comparison, so it runs before the [train]
     path's counts are reset."""
@@ -3202,10 +3399,11 @@ def phase_train_check() -> dict:
         per_leaf = _leaf_gaps(grads_k, grads_p)
         gaps = {"kernels": _worst(per_leaf, names)}
         detail = {"kernels": _worst_entry(grads_k, grads_p, per_leaf)}
-        for what, fwd, bwd in (("kernel fwd + plain bwd", True, "plain"),
-                               ("plain fwd + kernel bwd", False, "kernel"),
-                               ("plain fwd + fp32-route bwd", False, "fp32 route"),
-                               ("kernel fwd + fp32-route bwd", True, "fp32 route")):
+        mixes = (("kernel fwd + plain bwd", True, "plain"),
+                 ("plain fwd + kernel bwd", False, "kernel"),
+                 ("plain fwd + fp32-route bwd", False, "fp32 route"),
+                 ("kernel fwd + fp32-route bwd", True, "fp32 route"))
+        for what, fwd, bwd in mixes if seed in TRAIN_MIX_SEEDS else ():
             grads = _step_one_grads(cfg, seed, _attention_route(fwd, bwd))[1]
             mix = _leaf_gaps(grads, grads_p)
             gaps[what], detail[what] = _worst(mix, names), _worst_entry(grads, grads_p, mix)
@@ -3684,11 +3882,26 @@ def main() -> None:
     mark("serve")
     # granite is drawn in fp32 (13.2 GB) and checked whole; qwen3 is drawn
     # in bf16 (its 30.5 B parameters would not fit in fp32) and checked in
-    # fp32 on a copy of its first layers (_moe_stepwise)
+    # fp32 on its first layers drawn alone (_moe_stepwise)
     served["granite_moe_3b_a800m"] = phase_serve("granite_moe_3b_a800m", "float32")
     mark("serve-granite")
-    served["qwen3_moe_30b_a3b"] = phase_serve("qwen3_moe_30b_a3b", "bfloat16")
+    served["qwen3_moe_30b_a3b"] = phase_serve("qwen3_moe_30b_a3b", "bfloat16",
+                                              fp32_layers=FP32_CUT_LAYERS)
     mark("serve-qwen3")
+    # minicpm3_4b (MLA: the expanded prefill through the kernel at q.k 96 /
+    # v 64, the absorbed decode over the latent cache) and llava (16.3 and
+    # 29.0 GB in fp32) are drawn and gated in fp32, llava also on its
+    # prefix path; command_r_35b is drawn in bf16 (60.6 GB; 121 GB in
+    # fp32), gated in bf16 at full depth (its weights from seed 0 read
+    # 0.0171; from seeds 1 and 2, 0.0246 and 0.0181: PERF.md §7) and in
+    # fp32 on its first 4 layers drawn alone (reduced)
+    served["minicpm3_4b"] = phase_serve("minicpm3_4b", "float32")
+    mark("serve-minicpm3")
+    served["llava_next_mistral_7b"] = phase_serve("llava_next_mistral_7b", "float32", prefix=True)
+    mark("serve-llava")
+    served["command_r_35b"] = phase_serve("command_r_35b", "bfloat16",
+                                          fp32_layers=FP32_CUT_LAYERS)
+    mark("serve-command-r")
     say("[time] phases (host seconds): " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 
@@ -3733,12 +3946,12 @@ def main() -> None:
                    figures_launches=fig_counts["topk_quant"])
     # each serving row keeps its first model's shape and adds the later
     # models' under their own prefix
-    fa_by = {arch: next(r for r in fa_rows if (*r["shape"], r["window"], r["dtype"]) == case)
-             for arch, case in FA_MODEL.items()}
+    fa_by = {arch: next(r for r in fa_rows if r["case"] == case) for arch, case in FA_MODEL.items()}
     ls_z = next(r for r in ls_rows if r["form"] == "mamba-head")
 
-    def with_model(row, arch, prefix, z):
-        launches = served[arch]["launches"][row["name"]]
+    def with_model(row, arch, prefix, z, launches=None):
+        if launches is None:
+            launches = served[arch]["launches"][row["name"]]
         return dict(row, **{f"{prefix}_{k}": z[k] for k in (
             "shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms", "max_abs_err")},
             **{f"{prefix}_launches": launches})
@@ -3746,8 +3959,16 @@ def main() -> None:
     main_fa = dict(fa_rows[0], launches=served["starcoder2_3b"]["launches"]["flash_attention"],
                    tensor_core_instructions=sass["flash_attention"])
     for arch, prefix in (("zamba2_7b", "zamba2"), ("granite_moe_3b_a800m", "granite_moe"),
-                         ("qwen3_moe_30b_a3b", "qwen3_moe")):
+                         ("qwen3_moe_30b_a3b", "qwen3_moe"), ("minicpm3_4b", "minicpm3"),
+                         ("command_r_35b", "command_r")):
         main_fa = with_model(main_fa, arch, prefix, fa_by[arch])
+    # llava: the prefix path's prefill (1,152 + 2,048 positions) and the
+    # text-only serve call's
+    llava = "llava_next_mistral_7b"
+    main_fa = with_model(main_fa, llava, "llava", fa_by[llava],
+                         launches=served[llava]["prefix"]["launches"])
+    main_fa = with_model(main_fa, llava, "llava_serve", fa_by["llava_serve"])
+    main_fa["minicpm3_dv"] = fa_by["minicpm3_4b"]["dv"]
     main_ls = with_model(dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"]["linear_scan"],
                               tensor_core_instructions=sass["linear_scan"]),
                          "zamba2_7b", "zamba2", ls_z)
@@ -3786,7 +4007,8 @@ def main() -> None:
         + ", ".join(f"{a} {v:.4f}" for a, v in fl_wire["bridge"].items())
         + f"; thread vafl over socket {fl_wire['threads']['events_per_s']:.3f} events/s, busy "
         f"{fl_wire['threads']['busy']:.1%} (inproc {fl_serve['threads']['vafl']:.3f}, "
-        f"{fl_serve['busy']:.1%}); 7 process workers afl {fp['events_per_s']:.3f} events/s "
+        f"{fl_serve['busy']:.1%}); {fp['children']} process workers afl "
+        f"{fp['events_per_s']:.3f} events/s "
         f"(thread afl inproc {fl_serve['threads']['afl']:.3f}), card busy {_share(fp['busy'])}, "
         f"a child's peak device memory {fp['peak_gb']:.4f} GB, kernel builds in children "
         f"{fp['builds']}; SIGKILL to return {fl_wire['killed']['seconds']:.3f} s; chaos soak "
@@ -3796,7 +4018,8 @@ def main() -> None:
     kernel_ms = {("starcoder2_3b", "flash_attention"): fa_rows[0]["ms"],
                  ("rwkv6_3b", "linear_scan"): ls_rows[0]["ms"],
                  ("zamba2_7b", "linear_scan"): ls_z["ms"],
-                 **{(arch, "flash_attention"): r["ms"] for arch, r in fa_by.items()}}
+                 **{(arch, "flash_attention"): r["ms"] for arch, r in fa_by.items()},
+                 (llava, "flash_attention"): fa_by["llava_serve"]["ms"]}
     for arch, st in served.items():
         parts = [(name, n, kernel_ms[(arch, name)]) for name, n in st["launches"].items()]
         say(f"[time] serve {arch} (host clock, synchronized): prefill {st['prefill_s']:.4f} s "
@@ -3810,6 +4033,16 @@ def main() -> None:
                f"pairs an expert at layer 0 {st['load_first'][0]}-{st['load_first'][1]}, decode's "
                f"weight-read bound {st['decode_bound_ms']:.3f} ms a step"
                if "dropped_pairs" in st else ""))
+        if "prefix" in st:
+            px, ms = st["prefix"], fa_by[arch]["ms"]
+            say(f"[time] serve {arch} prefix path (host clock, synchronized): prefill "
+                f"{px['prefill_s']:.4f} s for {SERVE['batch']} x ({px['prefix']} + "
+                f"{SERVE['prompt_len']}) positions, decode {px['decode_tok_per_s']:.2f} tok/s "
+                f"({SERVE['batch']} x {SERVE['gen']} tokens in {px['decode_s']:.4f} s); "
+                f"{px['launches']} flash_attention launches x {ms:.4f} ms = "
+                f"{px['launches'] * ms / 1e3 / px['prefill_s']:.1%} of the prefill; prefix "
+                f"prefill + one decode_step vs prefill {px['bf16_gap']:.3g} of the logits' scale "
+                f"in bf16 (not gated)")
     # the backward's row: the train path's shape (minicpm_2b, bf16, no
     # window); its launches are the [train] path's, one 5-step
     # make_train_step run's beside them

@@ -11,6 +11,10 @@
 // TPU kernel does.  q is (B, S, H, D) and k, v (B, S, KV, D), each read
 // through its own strides with D unit-stride, so neither the kv repeat
 // nor the (B*H, S, D) transpose of the TPU wrapper is materialised.
+// v (and o) may be narrower than q and k: Multi-head Latent Attention's
+// expanded form (minicpm3_4b) has q.k head dim DQK = 96 and v head dim
+// DV = 64, and D above reads DQK for q and k, DV for v and o; the scale
+// stays 1 / sqrt(DQK).
 // Rows and keys past S (a ragged last tile) are masked, so any S works;
 // key tiles wholly above the diagonal or wholly outside the window are
 // never loaded.  For training, both routes also write each row's
@@ -19,9 +23,9 @@
 // passes none and runs the same code with one untaken branch a row.
 //
 // Bound on an H100: operations.  The causal product costs about
-// 2 * B * H * S^2 * D multiply-adds over about 2 * B * S * (H + 2 KV) * D
-// elements moved, hundreds of operations per byte at S = 2048: the bf16
-// tensor-core rate is the bar.
+// B * H * S^2 * (DQK + DV) / 2 multiply-adds over about
+// B * S * ((H + KV) * DQK + (KV + H) * DV) elements moved, hundreds of
+// operations per byte at S = 2048: the bf16 tensor-core rate is the bar.
 //
 // Two routes, chosen by the input type:
 //
@@ -46,21 +50,26 @@
 // A warp skips a key tile that is wholly masked for its 16 rows and masks
 // only the tiles that cross its diagonal, the window's edge or S.  Rows
 // must be 16-byte aligned for cp.async; the wrapper (ops.py) copies a
-// tensor whose base or strides are not.  Shared memory: (128 + 4 * 64)
-// rows of D + 8 bf16, 104,448 bytes at D = 128 and 92,160 at D = 112
-// (zamba2_7b's shared attention; a row of 240 bytes still puts the eight
-// rows of an ldmatrix in distinct banks).
+// tensor whose base or strides are not.  Shared memory: (128 + 2 * 64)
+// rows of DQK + 8 bf16 (Q, and K's two stages) and 2 * 64 rows of DV + 8
+// (V's), 104,448 bytes at D = 128, 92,160 at D = 112 (zamba2_7b's shared
+// attention; a row of 240 bytes still puts the eight rows of an ldmatrix
+// in distinct banks) and 71,680 at (96, 64) (rows of 208 and 144 bytes:
+// distinct banks too).  At unequal dims QK^T takes DQK / 16 k-steps and
+// O has DV / 8 n-tiles.
 //
 // fp32 (held to 2e-5, which TF32 products would break): the first
 // kernel's plain fp32 FMA tiles on the CUDA cores.  One block of 256
 // threads per (64-query tile, head, batch row); the query tile stays in
 // shared memory and each thread owns a 4 x 4 patch of the score tile and
-// 4 rows x D/16 columns of the output accumulator, in registers, with its
+// 4 rows x DV/16 columns of the output accumulator, in registers, with its
 // rows' running max and denominator; a row's 16 owners sit in one
 // half-warp and reduce with shuffles.  K rows are padded by one float so
 // that 16 rows read at one depth fall in 16 banks.
 //
-// Head dims 32, 64, 112 and 128, a template instance each.
+// Head dims 32, 64, 112 and 128, and the unequal (DQK, DV) pairs (96, 64)
+// and (48, 32) (minicpm3_4b and its smoke width), a template instance
+// each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,15 +98,17 @@ struct Args {
 
 constexpr int kBQ = 128;       // queries per block: 8 warps x 16 rows
 
-template <int HD>
+template <int DQK, int DV>
 constexpr size_t bf16_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(HD + 8) * (kBQ + 4 * kBK);
+  return sizeof(__nv_bfloat16) *
+         ((size_t)(DQK + 8) * (kBQ + 2 * kBK) + (size_t)(DV + 8) * 2 * kBK);
 }
 
 // ROWS rows of HD bf16 from src (row stride `stride` elements) into dst
 // (pitch HD + 8), starting at sequence position s0; rows past S are zeros.
 // A tile whose chunks do not split evenly over the block (64 rows at
-// HD = 112: 896 chunks over 256 threads) ends in a guarded pass.
+// HD = 112: 896 chunks over 256 threads; at HD = 48, 384) ends in a
+// guarded pass.
 template <int HD, int ROWS>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long stride, int s0, int S, int tid) {
@@ -114,15 +125,16 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
-  constexpr int P = HD + 8;   // shared-memory row pitch, bf16 elements
-  constexpr int KS = HD / 16; // k-steps of Q K^T
-  constexpr int NT = HD / 8;  // n-tiles of O
+  constexpr int P = DQK + 8;   // shared-memory row pitch of Q and K, bf16 elements
+  constexpr int PV = DV + 8;   // ... of V
+  constexpr int KS = DQK / 16; // k-steps of Q K^T
+  constexpr int NT = DV / 8;   // n-tiles of O
   extern __shared__ __align__(16) unsigned char bf16_smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(bf16_smem);  // kBQ x P
   __nv_bfloat16* k_s = q_s + kBQ * P;                                 // 2 stages x kBK x P
-  __nv_bfloat16* v_s = k_s + 2 * kBK * P;                             // 2 stages x kBK x P
+  __nv_bfloat16* v_s = k_s + 2 * kBK * P;                             // 2 stages x kBK x PV
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
@@ -139,10 +151,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
   const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int kt0 = k_first / kBK, kt1 = q_last / kBK;
 
-  load_rows<HD, kBQ>(q_s, qg, a.sq[1], q0, a.S, tid);
+  load_rows<DQK, kBQ>(q_s, qg, a.sq[1], q0, a.S, tid);
   mma::cp_async_commit();
-  load_rows<HD, kBK>(k_s, kg, a.sk[1], kt0 * kBK, a.S, tid);
-  load_rows<HD, kBK>(v_s, vg, a.sv[1], kt0 * kBK, a.S, tid);
+  load_rows<DQK, kBK>(k_s, kg, a.sk[1], kt0 * kBK, a.S, tid);
+  load_rows<DV, kBK>(v_s, vg, a.sv[1], kt0 * kBK, a.S, tid);
   mma::cp_async_commit();
   mma::cp_async_wait<1>();  // the Q group has landed
   __syncthreads();
@@ -165,8 +177,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
     mma::cp_async_wait<0>();  // tile kt has landed ...
     __syncthreads();          // ... for every thread, and tile kt - 1 is no longer read
     if (kt < kt1) {
-      load_rows<HD, kBK>(k_s + (st ^ 1) * kBK * P, kg, a.sk[1], (kt + 1) * kBK, a.S, tid);
-      load_rows<HD, kBK>(v_s + (st ^ 1) * kBK * P, vg, a.sv[1], (kt + 1) * kBK, a.S, tid);
+      load_rows<DQK, kBK>(k_s + (st ^ 1) * kBK * P, kg, a.sk[1], (kt + 1) * kBK, a.S, tid);
+      load_rows<DV, kBK>(v_s + (st ^ 1) * kBK * PV, vg, a.sv[1], (kt + 1) * kBK, a.S, tid);
       mma::cp_async_commit();
     }
     const int k0 = kt * kBK;
@@ -175,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
     const bool need_mask = k0 + kBK - 1 > wq0 || k0 + kBK > a.S ||
                            (a.window > 0 && wq0 + 15 - k0 >= a.window);
     const __nv_bfloat16* kt_s = k_s + st * kBK * P;
-    const __nv_bfloat16* vt_s = v_s + st * kBK * P;
+    const __nv_bfloat16* vt_s = v_s + st * kBK * PV;
 
     float s[kBK / 8][4];
 #pragma unroll
@@ -248,9 +260,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
                               mma::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               mma::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t vb[4];  // B fragments of output n-tiles 2 dp and 2 dp + 1
-        mma::ldmatrix_x4_trans(vb, vt_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+        mma::ldmatrix_x4_trans(vb, vt_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * PV +
                                        dp * 16 + (lane >> 4) * 8);
         mma::mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
         mma::mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
@@ -281,21 +293,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
 
 constexpr int kF32BQ = 64;     // queries per block
 
-constexpr size_t f32_smem_bytes(int hd) {
-  return sizeof(float) * ((size_t)kF32BQ * (hd + 1) + (size_t)kBK * (hd + 1) +
-                          (size_t)kBK * hd + (size_t)kF32BQ * (kBK + 1));
+// Q and K tiles at pitch DQK + 1, V at DV, P at kBK + 1 floats
+constexpr size_t f32_smem_bytes(int dqk, int dv) {
+  return sizeof(float) * ((size_t)kF32BQ * (dqk + 1) + (size_t)kBK * (dqk + 1) +
+                          (size_t)kBK * dv + (size_t)kF32BQ * (kBK + 1));
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
   extern __shared__ float f32_smem[];
-  constexpr int QLD = HD + 1;
+  constexpr int QLD = DQK + 1;
   constexpr int PLD = kBK + 1;
-  constexpr int CPT = HD / 16;  // output columns per thread
+  constexpr int CPT = DV / 16;  // output columns per thread
   float* q_s = f32_smem;              // kF32BQ x QLD
   float* k_s = q_s + kF32BQ * QLD;    // kBK x QLD
-  float* v_s = k_s + kBK * QLD;  // kBK x HD
-  float* p_s = v_s + kBK * HD;        // kF32BQ x PLD
+  float* v_s = k_s + kBK * QLD;       // kBK x DV
+  float* p_s = v_s + kBK * DV;        // kF32BQ x PLD
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kF32BQ;
@@ -306,8 +319,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
   const float* vg = static_cast<const float*>(a.v) + b * a.sv[0] + g * a.sv[2];
   float* og = static_cast<float*>(a.o) + b * a.so[0] + h * a.so[2];
 
-  for (int i = tid; i < kF32BQ * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD, s = q0 + r;
+  for (int i = tid; i < kF32BQ * DQK; i += kThreads) {
+    const int r = i / DQK, d = i % DQK, s = q0 + r;
     q_s[r * QLD + d] = s < a.S ? qg[s * a.sq[1] + d] : 0.f;
   }
 
@@ -326,11 +339,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
   for (int kt = k_first / kBK; kt <= q_last / kBK; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's readers of k_s, v_s, p_s are done
-    for (int i = tid; i < kBK * HD; i += kThreads) {
-      const int r = i / HD, d = i % HD, s = k0 + r;
-      const bool in = s < a.S;
-      k_s[r * QLD + d] = in ? kg[s * a.sk[1] + d] : 0.f;
-      v_s[r * HD + d] = in ? vg[s * a.sv[1] + d] : 0.f;
+    for (int i = tid; i < kBK * DQK; i += kThreads) {
+      const int r = i / DQK, d = i % DQK, s = k0 + r;
+      k_s[r * QLD + d] = s < a.S ? kg[s * a.sk[1] + d] : 0.f;
+    }
+    for (int i = tid; i < kBK * DV; i += kThreads) {
+      const int r = i / DV, d = i % DV, s = k0 + r;
+      v_s[r * DV + d] = s < a.S ? vg[s * a.sv[1] + d] : 0.f;
     }
     __syncthreads();
 
@@ -340,7 +355,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty + 16 * i) * QLD + d];
@@ -389,7 +404,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
       for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * PLD + kk];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        const float vv = v_s[kk * HD + tx + 16 * c];
+        const float vv = v_s[kk * DV + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
       }
@@ -408,31 +423,33 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
   }
 }
 
-template <int HD>
+template <int DQK, int DV>
 int launch(const Args& a, int B, int dtype, cudaStream_t s) {
+  static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims are whole k-steps and column groups");
   if (dtype == 0) {
-    const size_t bytes = f32_smem_bytes(HD);
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<HD>,
+    const size_t bytes = f32_smem_bytes(DQK, DV);
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<DQK, DV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)((a.S + kF32BQ - 1) / kF32BQ), (unsigned)a.H, (unsigned)B);
-    flash_fwd_f32<HD><<<grid, kThreads, bytes, s>>>(a);
+    flash_fwd_f32<DQK, DV><<<grid, kThreads, bytes, s>>>(a);
   } else {
-    const size_t bytes = bf16_smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<HD>,
+    const size_t bytes = bf16_smem_bytes<DQK, DV>();
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<DQK, DV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)((a.S + kBQ - 1) / kBQ), (unsigned)a.H, (unsigned)B);
-    flash_fwd_bf16<HD><<<grid, kThreads, bytes, s>>>(a);
+    flash_fwd_bf16<DQK, DV><<<grid, kThreads, bytes, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  strides: 12
-// element strides, (b, s, head) of q, k, v, o in that order; the head
-// dim is unit-stride in all four.  For bfloat16 every row of q, k, v
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  hd is q's and
+// k's head dim, dv v's and o's: equal (32, 64, 112, 128) or one of the
+// pairs (96, 64) and (48, 32).  strides: 12 element strides, (b, s, head)
+// of q, k, v, o in that order; the head dim is unit-stride in all four.  For bfloat16 every row of q, k, v
 // must start 16-byte aligned (base pointers and strides), and o's rows
 // 4-byte aligned.  window <= 0 means no window.  lse, when not null,
 // receives each row's logsumexp of the scaled scores, fp32 (B, H, S)
@@ -440,7 +457,7 @@ int launch(const Args& a, int B, int dtype, cudaStream_t s) {
 // serving passes null.  Returns the CUDA error of the launch (0 on
 // success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int S, int H, int KV, int hd,
+                                   int dtype, int B, int S, int H, int KV, int hd, int dv,
                                    const long long* strides, int window, float scale,
                                    float* lse, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || (dtype != 0 && dtype != 1))
@@ -463,11 +480,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   a.window = window;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32: return launch<32>(a, B, dtype, s);
-    case 64: return launch<64>(a, B, dtype, s);
-    case 112: return launch<112>(a, B, dtype, s);
-    case 128: return launch<128>(a, B, dtype, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (dv == hd) {
+    switch (hd) {
+      case 32: return launch<32, 32>(a, B, dtype, s);
+      case 64: return launch<64, 64>(a, B, dtype, s);
+      case 112: return launch<112, 112>(a, B, dtype, s);
+      case 128: return launch<128, 128>(a, B, dtype, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (hd == 96 && dv == 64) return launch<96, 64>(a, B, dtype, s);
+  if (hd == 48 && dv == 32) return launch<48, 32>(a, B, dtype, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,9 +2,12 @@
 layout in, causal attention out, with its gradient.  Port of
 ``repro.kernels.flash_attention.ops.gqa_flash_attention``.
 
-``gqa_flash_attention`` takes q (B, S, H, hd) and k, v (B, S, KV, hd) as
-they come out of the attention layer's projections and returns
-(B, S, H, hd) in q's dtype.  It is ``FlashAttention``, a
+``gqa_flash_attention`` takes q, k (B, S, H | KV, hd) and v (B, S, KV,
+dv) as they come out of the attention layer's projections and returns
+(B, S, H, dv) in q's dtype.  dv is hd (``HEAD_DIMS``) but for MLA's
+unequal pairs (``UNEQUAL_HEAD_DIMS``: minicpm3_4b's q.k 96 / v 64 and
+its smoke width's 48 / 32), which the forward kernel takes as template
+instances of their own.  It is ``FlashAttention``, a
 ``torch.autograd.Function``:
 
 * forward: CUDA tensors launch the kernel in ``csrc/flash_attention.cu``,
@@ -21,9 +24,10 @@ they come out of the attention layer's projections and returns
 * backward: CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (no
   atomics: dK and dV a key tile, then dQ a query tile) from q, k, v, o,
   dO and lse, and return gradients in the input dtype.  It takes the
-  forward's head dims, 32, 64, 112 (zamba2_7b's shared attention: the
-  bf16 route's tiles hold 112 columns padded with zeros to 128) and 128
-  (``BWD_HEAD_DIMS``).  The route
+  forward's equal head dims, 32, 64, 112 (zamba2_7b's shared attention:
+  the bf16 route's tiles hold 112 columns padded with zeros to 128) and
+  128 (``BWD_HEAD_DIMS``); an unequal pair raises ``ValueError`` before
+  any launch (MLA trains on the CPU only).  The route
   follows the dtype.  bf16 (the ``[train]`` path) runs every product on
   the tensor cores (``wgmma``, one warpgroup a 64-row tile, P and dS
   rounded to bf16 in registers) with ``cp.async`` rings of bf16 tiles,
@@ -63,6 +67,7 @@ bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 112, 128)   # the forward kernel's (112: zamba2_7b's shared attention)
+UNEQUAL_HEAD_DIMS = ((96, 64), (48, 32))   # (q.k, v) of MLA: minicpm3_4b, its smoke width
 BWD_HEAD_DIMS = (32, 64, 112, 128)   # the backward kernel's
 BWD_TILE = 64              # queries and keys a tile of the bf16 backward
 BWD_BLOCKS_PER_SM = 2      # its dK/dV blocks resident an SM at hd 128 (255 registers, 100 KB)
@@ -71,7 +76,7 @@ BWD_BLOCKS_PER_SM = 2      # its dK/dV blocks resident an SM at hd 128 (255 regi
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.library("flash_attention").flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -100,14 +105,25 @@ def needs_copy(x) -> bool:
     return x.data_ptr() % 16 != 0 or any(st * esize % 16 for st in x.stride()[:3])
 
 
-def _check_launch(q, backward: bool = False):
+def _check_launch(q, backward: bool = False, dv=None):
+    """Raise for what the kernels do not take: q (B, S, H, hd) and a v
+    head dim ``dv`` (hd where None)."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
     B, S, H, hd = q.shape
-    if backward and hd not in BWD_HEAD_DIMS:
+    dv = hd if dv is None else dv
+    if dv != hd:
+        if backward:
+            raise ValueError(f"flash_attention backward kernel takes equal q.k and v head dims, "
+                             f"got ({hd}, {dv}): MLA trains on the CPU only (ROADMAP.md §1 "
+                             f"item 11)")
+        if (hd, dv) not in UNEQUAL_HEAD_DIMS:
+            raise ValueError(f"flash_attention kernel takes unequal (q.k, v) head dims in "
+                             f"{UNEQUAL_HEAD_DIMS}, got ({hd}, {dv})")
+    elif backward and hd not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention backward kernel takes head_dim in {BWD_HEAD_DIMS}, "
                          f"got {hd}")
-    if hd not in HEAD_DIMS:
+    elif hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if max(B, H) > 65535:
         raise ValueError(f"flash_attention takes at most 65535 batch rows and heads (grid), "
@@ -117,20 +133,21 @@ def _check_launch(q, backward: bool = False):
 def _launch(q, k, v, window, need_lse=False):
     """The forward kernel: (o, lse), lse None unless ``need_lse``."""
     global launches
-    _check_launch(q)
+    dv = v.shape[-1]
+    _check_launch(q, dv=dv)
     B, S, H, hd = q.shape
     KV = k.shape[2]
     q, k, v = (x.clone(memory_format=torch.contiguous_format) if needs_copy(x) else x
                for x in (q, k, v))
     fn = _kernel()
     with torch.cuda.device(q.device):
-        out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+        out = torch.empty((B, S, H, dv), dtype=q.dtype, device=q.device)
         lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
                if need_lse else None)
         strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                            *v.stride()[:3], *out.stride()[:3])
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-                 B, S, H, KV, hd, ctypes.addressof(strides), window or 0, 1.0 / hd ** 0.5,
+                 B, S, H, KV, hd, dv, ctypes.addressof(strides), window or 0, 1.0 / hd ** 0.5,
                  lse.data_ptr() if lse is not None else None,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -150,7 +167,7 @@ def bwd_plan(B, S, H, KV, sms):
 def _launch_bwd(q, k, v, o, do, lse, window):
     """The backward kernels: (dq, dk, dv) in q's dtype."""
     global bwd_launches
-    _check_launch(q, backward=True)
+    _check_launch(q, backward=True, dv=v.shape[-1])
     if not q.dtype == o.dtype == do.dtype or lse.dtype != torch.float32:
         raise TypeError(f"flash_attention backward takes q, o, dO of one dtype and fp32 lse, "
                         f"got {q.dtype}, {o.dtype}, {do.dtype}, {lse.dtype}")
@@ -241,11 +258,12 @@ class FlashAttention(torch.autograd.Function):
 
 
 def gqa_flash_attention(q, k, v, *, window=None):
-    """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd), causal; ``window``
-    keeps keys with ``q - k < window``.  Differentiable in q, k and v."""
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"need q (B,S,H,hd) and k, v (B,S,KV,hd), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    """q (B,S,H,hd), k (B,S,KV,hd), v (B,S,KV,dv) -> (B,S,H,dv), causal;
+    ``window`` keeps keys with ``q - k < window``.  Differentiable in q, k
+    and v (on the card only where dv == hd)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"need q (B,S,H,hd), k (B,S,KV,hd) and v (B,S,KV,dv), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, hd = q.shape
     if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd or H % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do not form GQA groups")

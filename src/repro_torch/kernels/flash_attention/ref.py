@@ -4,8 +4,10 @@ card.  It computes what ``repro.kernels.flash_attention.ref.attention``
 computes (causal softmax attention in fp32, scale ``1/sqrt(D)``, masked
 scores at -1e30, an optional sliding window ``q - k < window``), on the
 model layer's layout: q (B, S, H, hd) and k, v (B, S, KV, hd), query head
-h reading kv head ``h // (H // KV)``.  ``gqa_attention_bwd`` is its
-gradient by autograd, the plain version of the backward kernel."""
+h reading kv head ``h // (H // KV)``.  v may be narrower than q and k
+(MLA: q.k head dim 96, v 64); the scale stays ``1/sqrt`` of q's.
+``gqa_attention_bwd`` is its gradient by autograd, the plain version of
+the backward kernel."""
 from __future__ import annotations
 
 import torch
@@ -14,8 +16,8 @@ NEG_INF = -1e30
 
 
 def attention(q, k, v, window=None):
-    """q, k, v: (BH, S, D), causal (optional sliding window) -> (BH, S, D)
-    in q's dtype."""
+    """q, k (BH, S, D), v (BH, S, Dv), causal (optional sliding window) ->
+    (BH, S, Dv) in q's dtype."""
     S, D = q.shape[1], q.shape[2]
     scale = 1.0 / (D ** 0.5)
     ct = torch.promote_types(q.dtype, torch.float32)   # fp32, or fp64 for gradcheck
@@ -31,17 +33,17 @@ def attention(q, k, v, window=None):
 
 
 def gqa_attention(q, k, v, window=None):
-    """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd), causal."""
-    B, S, H, hd = q.shape
+    """q (B,S,H,hd), k (B,S,KV,hd), v (B,S,KV,dv) -> (B,S,H,dv), causal."""
+    B, S, H, _ = q.shape
     G = H // k.shape[2]
     kq = torch.repeat_interleave(k, G, dim=2)
     vq = torch.repeat_interleave(v, G, dim=2)
 
     def to_bh(x):
-        return x.permute(0, 2, 1, 3).reshape(B * H, S, hd)
+        return x.permute(0, 2, 1, 3).reshape(B * H, S, x.shape[-1])
 
     o = attention(to_bh(q), to_bh(kq), to_bh(vq), window=window)
-    return o.reshape(B, H, S, hd).permute(0, 2, 1, 3)
+    return o.reshape(B, H, S, v.shape[-1]).permute(0, 2, 1, 3)
 
 
 def gqa_attention_bwd(q, k, v, do, window=None):

@@ -4,17 +4,21 @@ of ``repro.launch.serve``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --smoke \\
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-(``--arch`` also starcoder2_3b, minicpm_2b, zamba2_7b and the two MoE
-models, granite_moe_3b_a800m and qwen3_moe_30b_a3b.)  The device
-defaults to ``cuda`` and raises without a card.  On the card the
-prompt's attention (zamba2_7b's shared block at head_dim 112 among it)
-runs through the flash_attention kernel, and RWKV6's time-mix and
-Mamba2's per-head scan through the linear_scan kernel; decode, and the
-MoE layers' routing and expert products, are plain PyTorch, as in the
-reference.  Parameters are drawn from an explicit ``torch.Generator``
-in ``param_dtype``, each leaf cast to the compute dtype as it is drawn
-(``decoder.init_params(dtype=)``), so no fp32 tree is ever whole:
-qwen3_moe_30b_a3b's 30.5 B parameters take 61 GB in bf16.
+(``--arch`` also starcoder2_3b, minicpm_2b, zamba2_7b, the two MoE
+models, granite_moe_3b_a800m and qwen3_moe_30b_a3b, minicpm3_4b (MLA),
+llava_next_mistral_7b and command_r_35b.)  The device defaults to
+``cuda`` and raises without a card.  On the card the prompt's attention
+(zamba2_7b's shared block at head_dim 112 and MLA's at q.k 96 / v 64
+among it) runs through the flash_attention kernel, and RWKV6's time-mix
+and Mamba2's per-head scan through the linear_scan kernel; decode, and
+the MoE layers' routing and expert products, are plain PyTorch, as in
+the reference.  The prompt is tokens only, as in the reference: a VLM's
+prefix embeddings go through ``make_prefill_step``'s
+``batch["prefix_embeds"]``.  Parameters are drawn from an explicit
+``torch.Generator`` in ``param_dtype``, each leaf cast to the compute
+dtype as it is drawn (``decoder.init_params(dtype=)``), so no fp32 tree
+is ever whole: qwen3_moe_30b_a3b's 30.5 B parameters take 61 GB in
+bf16, command_r_35b's 30.3 B 60.6 GB.
 """
 from __future__ import annotations
 
@@ -91,7 +95,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="minicpm_2b, starcoder2_3b, rwkv6_3b, zamba2_7b, "
-                         "granite_moe_3b_a800m or qwen3_moe_30b_a3b")
+                         "granite_moe_3b_a800m, qwen3_moe_30b_a3b, minicpm3_4b, "
+                         "llava_next_mistral_7b or command_r_35b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

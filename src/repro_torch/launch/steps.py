@@ -71,14 +71,18 @@ def make_train_step(cfg, *, lr: float = 3e-4, moe_dispatch: str = "einsum", rema
 def make_prefill_step(cfg, *, moe_dispatch: str = "einsum", fill_cache: bool = False,
                       cache_len: int = 0):
     """fill_cache=True runs the serving prefill (returns the filled decode
-    cache alongside the last-position logits)."""
+    cache alongside the last-position logits).  ``batch["prefix_embeds"]``
+    (B, P, d), where present, goes before the tokens (the VLM stub); the
+    next decode position is then P + the tokens' length."""
     @torch.no_grad()
     def prefill_step(params, batch):
+        prefix = batch.get("prefix_embeds")
         if fill_cache:
             logits, cache, _ = decoder.prefill(cfg, params, batch["tokens"], cache_len,
-                                               moe_dispatch=moe_dispatch)
+                                               prefix_embeds=prefix, moe_dispatch=moe_dispatch)
             return logits, cache
-        logits, _ = decoder.forward(cfg, params, batch["tokens"], moe_dispatch=moe_dispatch)
+        logits, _ = decoder.forward(cfg, params, batch["tokens"], prefix_embeds=prefix,
+                                    moe_dispatch=moe_dispatch)
         return logits[:, -1]
     return prefill_step
 

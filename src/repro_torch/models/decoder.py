@@ -1,9 +1,12 @@
-"""Decoder stack for training and serving: dense GQA (starcoder2 and
-minicpm style, with qwen3's per-head q/k RMSNorm), Mixture-of-Experts
-(granite and qwen3-moe), RWKV6, and the Mamba2 hybrid with one shared
-attention block (Zamba2).  Port of the ``("attn", False)``,
-``("attn", True)``, ``("rwkv6", False)``, ``("mamba2", False)`` and
-``("shared_attn", False)`` layer families of ``repro.models.decoder``.
+"""Decoder stack for training and serving: dense GQA (starcoder2,
+minicpm and mistral style, with qwen3's per-head q/k RMSNorm), Multi-head
+Latent Attention (MiniCPM3), Cohere's parallel attention and FFN block
+(command-r), Mixture-of-Experts (granite and qwen3-moe), RWKV6, the
+Mamba2 hybrid with one shared attention block (Zamba2), and the
+vision-language stub (LLaVA-NeXT: prefix embeddings before the tokens).
+Port of the ``("attn", False)``, ``("attn", True)``, ``("rwkv6",
+False)``, ``("mamba2", False)`` and ``("shared_attn", False)`` layer
+families of ``repro.models.decoder``.
 
 Layers are grouped into maximal runs of identical block type with
 stacked parameters, as in the reference, so a reference tree carries
@@ -14,24 +17,31 @@ one attention block at the top level, ``params["shared_attn"]``, which
 every invocation shares; each invocation keeps its own KV cache.  An MoE
 layer holds ``moe`` (``models/moe.py``) in place of ``mlp`` and returns
 its router's load-balance loss, which ``forward`` sums over the layers
-and ``loss_fn`` adds at ``cfg.moe.router_aux_coef``.  MLA,
-encoder-decoder, modality frontends and parallel blocks raise
-``NotImplementedError`` (ROADMAP.md §1 item 11).
+and ``loss_fn`` adds at ``cfg.moe.router_aux_coef``.  An MLA layer
+(``cfg.attention == "mla"``) holds ``attn`` from ``attention.init_mla``
+and keeps a full-length compressed cache, {"ckv", "krope"}; a parallel
+block (``cfg.parallel_block``) has no ``norm2`` and adds its attention
+and FFN, both of the one normed input, to the residual at once.
+``prefix_embeds`` (B, P, d), a stub frontend's output (vision), go
+before the scaled token embeddings in ``forward``, ``prefill`` and
+``loss_fn``; positions count them.  The encoder-decoder (whisper) and an
+audio frontend raise ``NotImplementedError`` (ROADMAP.md §1 item 11).
 
 Public API (plain functions of (cfg, params, ...)):
   init_params(cfg, generator, dtype=None)
-  forward(cfg, params, tokens, remat=True)       -> logits, aux
+  forward(cfg, params, tokens, prefix_embeds=None, remat=True) -> logits, aux
   loss_fn(cfg, params, batch, remat=True)        -> loss, metrics
-  prefill(cfg, params, tokens, cache_len)        -> last logits, cache, next pos
+  prefill(cfg, params, tokens, cache_len, prefix_embeds=None)
+                                                 -> last logits, cache, next pos
   init_cache(cfg, params, batch, cache_len)
   decode_step(cfg, params, cache, token, pos)    -> logits, cache
 
 ``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take the
 reference's ``moe_dispatch`` ("einsum" or "sort"; MoE layers only).
 ``forward`` and ``loss_fn`` are differentiable in the parameters (the
-attention layer's kernels have a backward; RWKV6 and Mamba2 train on the
-CPU only, ``models/recurrence.py``, and so does the shared attention at
-zamba2's head dim of 112, which the backward kernel does not take).
+attention layer's kernels have a backward; RWKV6 and Mamba2 through
+the linear_scan kernel's; MLA trains on the CPU only: the attention
+backward kernel takes no unequal q.k and v head dims and raises).
 ``remat`` recomputes each layer's forward in the backward
 (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
 activations, as the reference's ``jax.checkpoint`` of the scanned layer
@@ -78,8 +88,8 @@ def check_supported(cfg) -> None:
     """Raise NotImplementedError for the parts of the zoo not ported yet."""
     missing = [f"layer {t}" for t, _ in layer_groups(cfg) if t not in PORTED_TAGS]
     missing += [name for name, on in (
-        ("mla", cfg.attention == "mla"), ("encoder", cfg.encoder is not None),
-        ("frontend", cfg.frontend is not None), ("parallel_block", cfg.parallel_block)) if on]
+        ("encoder", cfg.encoder is not None),
+        ("frontend", cfg.frontend is not None and cfg.frontend.kind != "vision")) if on]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported to "
                                   f"repro_torch yet (ROADMAP.md §1 item 11)")
@@ -98,8 +108,10 @@ def _init_layer(fac, cfg, tag):
         p["norm2"] = init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)
         return p
     if kind == "attn":
-        p["attn"] = attn.init_attention(fac, cfg)
-    p["norm2"] = init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)
+        p["attn"] = attn.init_mla(fac, cfg) if cfg.attention == "mla" else \
+            attn.init_attention(fac, cfg)
+    if not cfg.parallel_block:
+        p["norm2"] = init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)
     if is_moe:
         p["moe"] = moe_lib.init_moe(fac, cfg)
     else:
@@ -188,8 +200,12 @@ def _layer(gp, i):
     return tree_map(lambda x: x[i], gp)
 
 
-def _embed(cfg, params, tokens):
+def _embed(cfg, params, tokens, prefix_embeds=None):
+    """Scaled token embeddings, after ``prefix_embeds`` (B, P, d) where
+    given, in the compute dtype."""
     x = embed_tokens(params["embed"], tokens) * cfg.scale_emb
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x.to(getattr(torch, cfg.compute_dtype))
 
 
@@ -228,14 +244,23 @@ def _apply_layer(cfg, lp, shared, x, positions, tag, *, window=None, cache_len=N
         return x + y * rs, {"tm_shift": sh, "wkv": wkv, "cm_shift": cm_sh}, None
 
     h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
-    ap = shared if kind == "shared_attn" else lp["attn"]
-    a, (k, v) = attn.attention_forward(ap, cfg, h, positions, window=window, return_kv=True)
     lcache = None
-    if cache_len is not None:
-        w = cfg.serve_window
-        alen = min(cache_len, w) if w else cache_len
-        lcache = {"k": _pack_rotating(k, alen, cache_dtype),
-                  "v": _pack_rotating(v, alen, cache_dtype)}
+    if kind == "attn" and cfg.attention == "mla":
+        a, (ckv, krope) = attn.mla_forward(lp["attn"], cfg, h, positions, return_ckv=True)
+        if cache_len is not None:      # the compressed cache is always full length
+            lcache = {"ckv": _pack_full(ckv, cache_len, cache_dtype),
+                      "krope": _pack_full(krope, cache_len, cache_dtype)}
+    else:
+        ap = shared if kind == "shared_attn" else lp["attn"]
+        a, (k, v) = attn.attention_forward(ap, cfg, h, positions, window=window, return_kv=True)
+        if cache_len is not None:
+            w = cfg.serve_window
+            alen = min(cache_len, w) if w else cache_len
+            lcache = {"k": _pack_rotating(k, alen, cache_dtype),
+                      "v": _pack_rotating(v, alen, cache_dtype)}
+    if cfg.parallel_block:
+        y, aux = _ffn(cfg, lp, h, tag, moe_dispatch)
+        return x + (a + y) * rs, lcache, aux
     x = x + a * rs
     h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
     y, aux = _ffn(cfg, lp, h, tag, moe_dispatch)
@@ -248,13 +273,15 @@ def _train_layer(cfg, tag, moe_dispatch, lp, shared, x, positions):
     return x, aux
 
 
-def forward(cfg, params, tokens, *, moe_dispatch: str = "einsum", remat: bool = True):
-    """tokens (B, S).  Returns (logits (B, S, V), the MoE layers' summed
-    aux loss, fp32; 0 without MoE).  With ``remat`` and grad enabled each
+def forward(cfg, params, tokens, *, prefix_embeds=None, moe_dispatch: str = "einsum",
+            remat: bool = True):
+    """tokens (B, S); ``prefix_embeds`` (B, P, d) go before them (the VLM
+    stub).  Returns (logits (B, P + S, V), the MoE layers' summed aux
+    loss, fp32; 0 without MoE).  With ``remat`` and grad enabled each
     layer is checkpointed."""
     check_supported(cfg)
     params = cast_params(cfg, params)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     remat = remat and torch.is_grad_enabled()
     shared = params.get("shared_attn")
@@ -274,16 +301,19 @@ def forward(cfg, params, tokens, *, moe_dispatch: str = "einsum", remat: bool = 
 # ----------------------------------------------------------------- loss ---
 
 def loss_fn(cfg, params, batch, *, moe_dispatch: str = "einsum", remat: bool = True):
-    """batch: {"tokens": (B, S), "labels": (B, S) with -1 = masked}.
-    Mean next-token NLL over the unmasked labels, from an fp32
-    ``log_softmax`` of the logits, plus ``router_aux_coef`` times the
-    summed aux loss for an MoE config.  Returns (loss, {"nll", "aux"}):
-    "nll" is the loss itself, as in the reference."""
-    if "prefix_embeds" in batch or "encoder_embeds" in batch:
-        raise NotImplementedError("prefix_embeds / encoder_embeds are not ported to "
-                                  "repro_torch yet (ROADMAP.md §1 item 11)")
-    logits, aux = forward(cfg, params, batch["tokens"], moe_dispatch=moe_dispatch, remat=remat)
+    """batch: {"tokens": (B, S), "labels": (B, S) with -1 = masked,
+    optionally "prefix_embeds" (B, P, d)}.  Mean next-token NLL over the
+    unmasked labels, from an fp32 ``log_softmax`` of the logits (prefix
+    positions carry no loss), plus ``router_aux_coef`` times the summed
+    aux loss for an MoE config.  Returns (loss, {"nll", "aux"}): "nll" is
+    the loss itself, as in the reference."""
+    if "encoder_embeds" in batch:
+        raise NotImplementedError("encoder_embeds are not ported to repro_torch yet "
+                                  "(ROADMAP.md §1 item 11)")
+    logits, aux = forward(cfg, params, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"),
+                          moe_dispatch=moe_dispatch, remat=remat)
     labels = batch["labels"]
+    logits = logits[:, logits.shape[1] - labels.shape[1]:]   # prefix positions carry no loss
     mask = (labels >= 0).float()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, torch.clamp_min(labels, 0).long()[..., None])[..., 0]
@@ -306,18 +336,28 @@ def _pack_rotating(t, alen, dtype):
     return buf
 
 
+def _pack_full(t, cache_len, dtype):
+    """t (B, S, ...) -> full-length cache buffer (B, cache_len, ...) whose
+    first S slots hold t (MLA's compressed cache)."""
+    buf = torch.zeros((t.shape[0], cache_len) + tuple(t.shape[2:]), dtype=dtype, device=t.device)
+    buf[:, :t.shape[1]] = t.to(dtype)
+    return buf
+
+
 def _stack_caches(layer_caches):
     return tree_map(lambda *xs: torch.stack(xs), *layer_caches)
 
 
-def prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat16,
-            moe_dispatch: str = "einsum"):
+def prefill(cfg, params, tokens, cache_len: int, *, prefix_embeds=None,
+            cache_dtype=torch.bfloat16, moe_dispatch: str = "einsum"):
     """Batched prompt processing: one forward pass that returns
     (last_position_logits (B,1,V), filled_cache, next_pos), the same cache
-    that stepping ``decode_step`` over the prompt fills."""
+    that stepping ``decode_step`` over the prompt fills.  With
+    ``prefix_embeds`` (B, P, d) the prompt is those embeddings then the
+    tokens, and next_pos counts both."""
     check_supported(cfg)
     params = cast_params(cfg, params)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     shared = params.get("shared_attn")
@@ -338,7 +378,9 @@ def prefill(cfg, params, tokens, cache_len: int, *, cache_dtype=torch.bfloat16,
 def init_cache(cfg, params, batch: int, cache_len: int, *, dtype=torch.bfloat16,
                device=None):
     """Build the per-group stacked cache tree (on the parameters' device
-    unless ``device`` is given).  A Mamba2 layer's conv state is fp32
+    unless ``device`` is given).  An MLA layer's compressed cache is
+    ``cache_len`` long whatever ``serve_window`` is, as in the reference.
+    A Mamba2 layer's conv state is fp32
     whatever ``dtype`` is, as in the reference (its prefill returns it in
     the compute dtype, and so does its first decode step)."""
     check_supported(cfg)
@@ -347,7 +389,9 @@ def init_cache(cfg, params, batch: int, cache_len: int, *, dtype=torch.bfloat16,
     alen = min(cache_len, window) if window else cache_len
     caches = []
     for (kind, _), count in layer_groups(cfg):
-        if kind in ("attn", "shared_attn"):
+        if kind == "attn" and cfg.attention == "mla":
+            one = attn.init_mla_cache(cfg, batch, cache_len, dtype, device=device)
+        elif kind in ("attn", "shared_attn"):
             one = attn.init_attn_cache(cfg, batch, alen, dtype, device=device)
         elif kind == "mamba2":
             conv, ssm = rec.init_mamba2_state(cfg, batch, device=device)
@@ -377,8 +421,14 @@ def _decode_layer(cfg, lp, shared, x, lcache, pos, tag, moe_dispatch):
         return x + y * rs, {"tm_shift": sh, "wkv": wkv, "cm_shift": cm_sh}
 
     h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
-    ap = shared if kind == "shared_attn" else lp["attn"]
-    a, new_cache = attn.attention_decode(ap, cfg, h, lcache, pos, window=cfg.serve_window)
+    if kind == "attn" and cfg.attention == "mla":
+        a, new_cache = attn.mla_decode(lp["attn"], cfg, h, lcache, pos)
+    else:
+        ap = shared if kind == "shared_attn" else lp["attn"]
+        a, new_cache = attn.attention_decode(ap, cfg, h, lcache, pos, window=cfg.serve_window)
+    if cfg.parallel_block:
+        y, _ = _ffn(cfg, lp, h, tag, moe_dispatch)
+        return x + (a + y) * rs, new_cache
     x = x + a * rs
     h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
     y, _ = _ffn(cfg, lp, h, tag, moe_dispatch)

@@ -8,9 +8,13 @@ embeddings), starcoder2_3b trains and serves, granite_moe_3b_a800m and
 qwen3_moe_30b_a3b (Mixture-of-Experts, qwen3 with per-head q/k
 RMSNorm) serve and train, rwkv6_3b and zamba2_7b (Mamba2 with a shared
 attention block) serve and train, on the card through the linear_scan
-kernel and its backward.
-The others raise ``NotImplementedError``: ROADMAP.md §1 item 11 queues
-them.
+kernel and its backward.  minicpm3_4b (Multi-head Latent Attention),
+llava_next_mistral_7b (a Mistral backbone behind stub vision prefix
+embeddings) and command_r_35b (parallel attention and FFN blocks)
+serve; MLA trains on the CPU only (the attention backward kernel takes
+no unequal q.k and v head dims).
+whisper_small raises ``NotImplementedError``: ROADMAP.md §1 item 11
+queues it.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ ARCH_IDS = (
     "whisper_small",
 )
 PORTED = ("minicpm_2b", "starcoder2_3b", "rwkv6_3b", "zamba2_7b", "granite_moe_3b_a800m",
-          "qwen3_moe_30b_a3b")
+          "qwen3_moe_30b_a3b", "minicpm3_4b", "llava_next_mistral_7b", "command_r_35b")
 
 
 def normalize(arch: str) -> str:

@@ -28,7 +28,7 @@ from repro.models import recurrence as jrec  # noqa: E402
 from repro.models.registry import get_config as jget_config  # noqa: E402
 from repro.models.registry import get_smoke_config as jget_smoke_config  # noqa: E402
 from repro_torch.common.pytree import tree_flatten, tree_leaves, tree_map  # noqa: E402
-from repro_torch.configs.base import SSMConfig  # noqa: E402
+from repro_torch.configs.base import EncoderConfig, SSMConfig  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.linear_scan import ops as ls_ops  # noqa: E402
@@ -508,19 +508,26 @@ def test_zamba2_trains_on_the_cpu_and_serve_cli(monkeypatch, capsys):
 def test_backward_refuses_head_dim_112_and_the_rest_still_raises():
     """Both kernels take head_dim 112, the backward too (zamba2_7b's shared
     attention trains on the card); a head dim neither takes is refused in
-    Python, before any launch; MLA and parallel blocks still raise."""
+    Python, before any launch, and so is MLA's unequal pair (96, 64) by the
+    backward alone.  MLA and parallel blocks are ported now (minicpm3_4b,
+    command_r_35b); the encoder-decoder still raises."""
     assert 112 in fa_ops.HEAD_DIMS and 112 in fa_ops.BWD_HEAD_DIMS
     fa_ops._check_launch(torch.zeros(1, 1, 1, 112))
     fa_ops._check_launch(torch.zeros(1, 1, 1, 112), backward=True)
     for bad in (96, 256):
         with pytest.raises(ValueError, match="head_dim"):
             fa_ops._check_launch(torch.zeros(1, 1, 1, bad), backward=True)
+    fa_ops._check_launch(torch.zeros(1, 1, 1, 96), dv=64)
+    with pytest.raises(ValueError, match="equal q.k and v"):
+        fa_ops._check_launch(torch.zeros(1, 1, 1, 96), backward=True, dv=64)
     cfg = registry.get_smoke_config(ARCH)
-    for bad in (dict(parallel_block=True), dict(attention="mla")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tdec.check_supported(cfg.replace(**bad))
+    tdec.check_supported(cfg.replace(parallel_block=True))
+    for arch in ("minicpm3_4b", "command_r_35b"):
+        tdec.check_supported(registry.get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_config("minicpm3_4b")
+        tdec.check_supported(cfg.replace(encoder=EncoderConfig(num_layers=2, num_frames=8)))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        registry.get_config("whisper_small")
 
 
 def test_plain_attention_at_head_dim_112():

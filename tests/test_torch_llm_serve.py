@@ -29,6 +29,7 @@ from repro.models import recurrence as jrec  # noqa: E402
 from repro.models.registry import get_config as jget_config  # noqa: E402
 from repro.models.registry import get_smoke_config as jget_smoke_config  # noqa: E402
 from repro_torch.common.pytree import tree_flatten, tree_leaves, tree_map  # noqa: E402
+from repro_torch.configs.base import EncoderConfig  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.linear_scan import ops as ls_ops  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -465,7 +466,8 @@ def assert_same_config(t, j):
 
 def test_registry_serves_the_ported_archs_only():
     assert set(registry.PORTED) == set(ARCHS) | {"zamba2_7b", "granite_moe_3b_a800m",
-                                                  "qwen3_moe_30b_a3b"}
+                                                  "qwen3_moe_30b_a3b", "minicpm3_4b",
+                                                  "llava_next_mistral_7b", "command_r_35b"}
     for arch in registry.PORTED:
         assert_same_config(registry.get_config(arch), jget_config(arch))
         assert_same_config(registry.get_smoke_config(arch.replace("_", "-")),
@@ -477,9 +479,10 @@ def test_registry_serves_the_ported_archs_only():
         registry.get_config("gpt2")
     cfg = registry.get_smoke_config("starcoder2_3b")
     tdec.check_supported(cfg.replace(qk_norm=True))
-    for bad in (dict(parallel_block=True), dict(attention="mla")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tdec.check_supported(cfg.replace(**bad))
+    tdec.check_supported(cfg.replace(parallel_block=True))
+    tdec.check_supported(registry.get_smoke_config("minicpm3_4b"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tdec.check_supported(cfg.replace(encoder=EncoderConfig(num_layers=2, num_frames=8)))
 
 
 def test_param_tree_matches_reference_layout_and_round_trips(ref_params):

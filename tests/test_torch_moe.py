@@ -33,6 +33,7 @@ from repro.models.registry import get_config as jget_config  # noqa: E402
 from repro.models.registry import get_smoke_config as jget_smoke  # noqa: E402
 from repro_torch.common.pytree import (tree_flatten, tree_leaves, tree_map,  # noqa: E402
                                        tree_unflatten)
+from repro_torch.configs.base import EncoderConfig  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import decoder as tdec  # noqa: E402
@@ -448,9 +449,10 @@ def test_check_supported_takes_moe_and_qk_norm_only():
     tdec.check_supported(cfg)
     tdec.check_supported(registry.get_smoke_config("starcoder2_3b").replace(qk_norm=True))
     assert ("attn", True) in tdec.PORTED_TAGS
-    for bad in (dict(parallel_block=True), dict(attention="mla")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tdec.check_supported(cfg.replace(**bad))
+    tdec.check_supported(cfg.replace(parallel_block=True))
+    tdec.check_supported(registry.get_smoke_config("minicpm3_4b"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tdec.check_supported(cfg.replace(encoder=EncoderConfig(num_layers=2, num_frames=8)))
 
 
 # ------------------------------------------------------------ on the card ---

@@ -1,5 +1,6 @@
-"""repro_torch, chip_smoke.py and algo1_ab.py must run on a CUDA host without JAX:
-they import neither ``jax`` nor anything of ``repro``."""
+"""repro_torch, chip_smoke.py, algo1_ab.py and serve_gate_probe.py must run
+on a CUDA host without JAX: they import neither ``jax`` nor anything of
+``repro``."""
 import ast
 import os
 import subprocess
@@ -34,7 +35,8 @@ def _imported_modules(path: Path):
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "algo1_ab.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / name for name in (
+        "chip_smoke.py", "algo1_ab.py", "serve_gate_probe.py")]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
