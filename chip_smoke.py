@@ -31,9 +31,10 @@ drive the port's main paths through their public entry points.
    and one set of permutations: the same record times, ``selected``,
    ``client_failed_rounds``, byte ledgers and clock, bit for bit.
 5. ``[checkpoint]``: the round runtime (vafl under flaky_edge), fedavg's
-   barrier, the sequential loop (vafl) and the batched engine (vafl in
-   full windows; afl with a FedBuff buffer of 4 crossing the checkpoint)
-   on the same federation, each run whole, checkpointed
+   barrier, the sequential loop (vafl, 2 rounds; the others 3) and the
+   batched engine (vafl in full windows; afl with a FedBuff buffer of 4
+   crossing the checkpoint) on the same federation, each run whole,
+   checkpointed
    (``checkpoint_path=``, ``checkpoint_every=``) and resumed
    (``resume=True``): the resumed run bit-equal to the whole one, and
    the kernels launched over the resumed part as often as the whole run
@@ -120,11 +121,25 @@ drive the port's main paths through their public entry points.
    2048 prompt, ``make_serve_step`` from position 3,200, and a prefix
    prefill of n - 1 tokens plus one decode step gated against the prefill
    of all n.
+12. ``[serve] whisper_small``, the encoder-decoder at its published
+   configuration (12 + 12 layers, d 768, 1,500 stub audio frames): the
+   encoder on the card against the CPU path, batch 1, fp32; then
+   ``serve(batch=4, prompt_len=224, gen=32)``, whose prefill runs the
+   encoder's non-causal self-attention, the decoder's causal
+   self-attention and the cross-attention (224 queries over 1,500
+   frames) through flash_attention, 12 launches each; then the prefill of
+   128 tokens against 128 decode steps over the bf16 caches, gated in
+   bf16.
 
 Run it from the root of a checkout:
 
     python3 chip_smoke.py
 
+The ``[flash_attention]`` rows hold the kernel against its plain
+version in both modes: causal at every served model's shape, and
+non-causal at whisper's encoder and cross-attention shapes, a ragged
+77 queries over 1,500 keys in fp32 and a GQA case, each with its bound
+over its (query, key) pairs and SDPA's time.
 Before the main paths it counts the tensor-core instructions (HMMA,
 HGMMA) in each kernel's compiled functions (``cuobjdump -sass`` from
 nvcc's toolkit) and fails if a bf16 route of flash_attention, its
@@ -202,7 +217,8 @@ TQ_OPS_PER_ELEM = 24             # 10 hash + 14 float/convert/select ops (csrc/t
 # at that pair, its smoke width's (48, 32) in both dtypes;
 # llava_next_mistral_7b's prefix prefill (1,152 prefix embeddings + 2,048
 # tokens, GQA 32/8 at 128) and its text-only serve prefill; command_r_35b's
-# (GQA 64/8 at 128)
+# (GQA 64/8 at 128); whisper_small's decoder self-attention in
+# serve(batch=4, prompt_len=224) (12 heads of 64)
 FA_CASES = [(4, 2048, 24, 2, 128, 128, 4096, "bfloat16"),
             (4, 1000, 24, 2, 128, 128, 4096, "bfloat16"),
             (4, 2048, 24, 2, 128, 128, 256, "bfloat16"), (2, 1024, 24, 2, 128, 128, None, "float32"),
@@ -216,13 +232,27 @@ FA_CASES = [(4, 2048, 24, 2, 128, 128, 4096, "bfloat16"),
             (4, 1000, 40, 40, 96, 64, None, "bfloat16"), (2, 77, 4, 4, 48, 32, None, "bfloat16"),
             (2, 77, 4, 4, 48, 32, None, "float32"),
             (4, 3200, 32, 8, 128, 128, None, "bfloat16"), (4, 2048, 32, 8, 128, 128, None, "bfloat16"),
-            (4, 2048, 64, 8, 128, 128, None, "bfloat16")]
+            (4, 2048, 64, 8, 128, 128, None, "bfloat16"),
+            (4, 224, 12, 12, 64, 64, None, "bfloat16")]
+# the kernel's non-causal mode: (B, Sq, Sk, H, KV, hd, dtype), v at hd, no
+# window; whisper_small's encoder self-attention in serve(batch=4,
+# prompt_len=224) over its 1,500 stub frames, that shape in fp32 at batch
+# 2, its cross-attention (224 queries over the 1,500 frames), a ragged 77
+# queries over 1,500 in fp32, and a GQA case (12 query heads over 4)
+FA_NONCAUSAL_CASES = [(4, 1500, 1500, 12, 12, 64, "bfloat16"),
+                      (2, 1500, 1500, 12, 12, 64, "float32"),
+                      (4, 224, 1500, 12, 12, 64, "bfloat16"),
+                      (4, 77, 1500, 12, 12, 64, "float32"),
+                      (4, 224, 1500, 12, 4, 64, "bfloat16")]
 # each served model's prefill shape; llava's the prefix path's (the serve
 # row, "llava_serve", its text-only serve call's)
 FA_MODEL = {"zamba2_7b": FA_CASES[5], "granite_moe_3b_a800m": FA_CASES[9],
             "qwen3_moe_30b_a3b": FA_CASES[10], "minicpm3_4b": FA_CASES[11],
             "llava_next_mistral_7b": FA_CASES[16], "llava_serve": FA_CASES[17],
             "command_r_35b": FA_CASES[18]}
+# whisper_small's three attentions in its serve prefill, each 12 launches
+FA_WHISPER = {"encoder": FA_NONCAUSAL_CASES[0], "self": FA_CASES[19],
+              "cross": FA_NONCAUSAL_CASES[2]}
 FA_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # linear_scan cases: (B, S, H, K, V, form, la, initial state); the first
 # is rwkv6_3b's prefill in serve(batch=4, prompt_len=2048): bf16 r/k/v,
@@ -273,6 +303,9 @@ DESIGN = {("flash_attention", "bfloat16"): "mma.sync m16n8k16 bf16, cp.async 2-s
                                            "128-query x 64-key tiles (8 warps x 16 rows), Q and P "
                                            "in registers, raw-score softmax on ex2.approx",
           ("flash_attention", "float32"): "fp32 FMA on the CUDA cores, 64 x 64 tiles",
+          ("flash_attention", "non-causal"): "the CAUSAL template flag false: every key tile "
+                                             "of Sk loaded, only the ragged last one masked "
+                                             "(key < Sk), queries bounded by Sq",
           ("flash_attention", "unequal"): "template instances at (q.k, v) = (96, 64) and (48, 32): "
                                           "Q and K rows at DQK + 8, V and O at DV + 8, DQK / 16 "
                                           "k-steps of Q K^T, DV / 8 n-tiles of O (bf16); V tiles "
@@ -331,6 +364,11 @@ TC_FUNCS = {"flash_attention": ("flash_fwd_bf16",), "linear_scan": ("scan_bf16",
             "flash_attention_bwd": ("dkdv_bf16", "dq_bf16"),
             "linear_scan_bwd": ("edge_bf16", "chunk_bf16", "chunk_head_bf16")}
 SERVE = dict(batch=4, prompt_len=2048, gen=32)
+# whisper_small: a prompt of 224 tokens, about half the decoder's 448
+# positions (the longest previous-text prompt whisper's decoding keeps),
+# after 1,500 stub audio frames; the cache is 256 positions
+WHISPER_SERVE = dict(batch=4, prompt_len=224, gen=32)
+WHISPER_ENCODER_TOL = 1e-3       # the encoder on the card against the CPU path, fp32, of scale
 CONSISTENCY_LEN = 128            # prefill vs stepwise decode at full width
 MOE_GATE_LEN = 8                 # an MoE model's gated check: 2 x 8 tokens, nothing drops
 MOE_BF16_LAYERS = 1              # an MoE model's bf16 gate: its first layer (_moe_bf16)
@@ -715,68 +753,75 @@ def _pairs(S: int, window) -> int:
 
 def phase_flash_attention(rows: list):
     """The forward kernel as serving launches it (grad disabled: no
-    logsumexp written) against its plain version, timed."""
+    logsumexp written) against its plain version, timed: the causal cases,
+    then the non-causal mode's."""
     import torch
+    gen = torch.Generator(device="cuda").manual_seed(2)
     with torch.no_grad():
-        _flash_attention_cases(rows)
+        for case in FA_CASES:
+            B, S, H, KV, hd, dv, window, dtype = case
+            _flash_attention_case(rows, gen, case, B, S, S, H, KV, hd, dv, window, True, dtype)
+        for case in FA_NONCAUSAL_CASES:
+            B, Sq, Sk, H, KV, hd, dtype = case
+            _flash_attention_case(rows, gen, case, B, Sq, Sk, H, KV, hd, hd, None, False, dtype)
+    torch.cuda.empty_cache()
 
 
-def _flash_attention_cases(rows: list):
+def _flash_attention_case(rows, gen, case, B, Sq, Sk, H, KV, hd, dv, window, causal, dtype):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    for case in FA_CASES:
-        B, S, H, KV, hd, dv, window, dtype = case
-        dt = getattr(torch, dtype)
-        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
-        k = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt)
-        v = torch.randn(B, S, KV, dv, generator=gen, device="cuda").to(dt)
-        got = ops.gqa_flash_attention(q, k, v, window=window)
-        want = ref.gqa_attention(q, k, v, window=window)
-        torch.cuda.synchronize()
-        tol = FA_TOL[dtype]
-        err = float((got.float() - want.float()).abs().max())
-        dims = f"hd {hd}" if dv == hd else f"q.k {hd} / v {dv}"
-        text = f"(B {B}, S {S}, H {H}, KV {KV}, {dims}, window {window}) {dtype}"
-        if not (tuple(got.shape) == (B, S, H, dv) and bool(torch.isfinite(got).all())
-                and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)):
-            fail(f"flash_attention {text}: max abs err {err:.3g} beyond rtol = atol = {tol}")
-        say(f"[check] flash_attention {text}: max abs err {err:.6g} (rtol = atol = {tol})")
-        esize = got.element_size()
-        # q, k read at hd, v read and o written at dv; q.k^T at hd and p.v
-        # at dv over the causal pairs, 2 operations a multiply-add
-        nbytes = B * S * ((H + KV) * hd + (KV + H) * dv) * esize
-        nops = 2 * _pairs(S, window) * B * H * (hd + dv)
-        bms, bby = bound_ms(nbytes, nops, BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S)
-        causal_only = window is None or window >= S         # the function SDPA computes
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib, lib_note = None, None
-        if causal_only:
-            # SDPA takes v narrower than q and k (Ev != E) on some of its
-            # backends; where it refuses, the row says so
-            try:
-                lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                     enable_gqa=True), 20, 3)
-            except RuntimeError as e:
-                lib_note = f"SDPA refused this call: {str(e).splitlines()[0][:160]}"
-        rows.append({
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
-            "shape": [B, S, H, KV, hd], "dv": dv, "window": window, "dtype": dtype,
-            "case": case,
-            "design": DESIGN[("flash_attention", dtype)] + (
-                "; " + DESIGN[("flash_attention", "unequal")] if dv != hd else ""),
-            "max_abs_err": err, "tol": tol,
-            "ms": cuda_ms(lambda: ops.gqa_flash_attention(q, k, v, window=window), 20, 3),
-            "plain_ms": cuda_ms(lambda: ref.gqa_attention(q, k, v, window=window), 10, 2),
-            "bound_ms": bms, "bound_by": bby, "bound_bytes": nbytes, "bound_ops": nops,
-            "library_ms": lib,
-            "library_call": ("F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
-                             if lib is not None else lib_note)})
-        del q, k, v, got, want
-    torch.cuda.empty_cache()
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, Sk, KV, hd, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, Sk, KV, dv, generator=gen, device="cuda").to(dt)
+    kw = dict(window=window) if causal else dict(causal=False)
+    got = ops.gqa_flash_attention(q, k, v, **kw)
+    want = ref.gqa_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = FA_TOL[dtype]
+    err = float((got.float() - want.float()).abs().max())
+    dims = f"hd {hd}" if dv == hd else f"q.k {hd} / v {dv}"
+    text = (f"(B {B}, S {Sq}, H {H}, KV {KV}, {dims}, window {window}) {dtype}" if causal else
+            f"non-causal (B {B}, Sq {Sq}, Sk {Sk}, H {H}, KV {KV}, {dims}) {dtype}")
+    if not (tuple(got.shape) == (B, Sq, H, dv) and bool(torch.isfinite(got).all())
+            and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)):
+        fail(f"flash_attention {text}: max abs err {err:.3g} beyond rtol = atol = {tol}")
+    say(f"[check] flash_attention {text}: max abs err {err:.6g} (rtol = atol = {tol})")
+    esize = got.element_size()
+    # q read and o written at Sq, k and v read at Sk; q.k^T at hd and p.v
+    # at dv over the (query, key) pairs, causal or all Sq x Sk, 2
+    # operations a multiply-add
+    nbytes = B * ((Sq * H + Sk * KV) * hd + (Sk * KV + Sq * H) * dv) * esize
+    nops = 2 * (_pairs(Sq, window) if causal else Sq * Sk) * B * H * (hd + dv)
+    bms, bby = bound_ms(nbytes, nops, BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib, lib_note = None, None
+    if not causal or window is None or window >= Sq:     # the function SDPA computes
+        # SDPA takes v narrower than q and k (Ev != E) on some of its
+        # backends; where it refuses, the row says so
+        try:
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                                 enable_gqa=True), 20, 3)
+        except RuntimeError as e:
+            lib_note = f"SDPA refused this call: {str(e).splitlines()[0][:160]}"
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+        "shape": [B, Sq, H, KV, hd], "sk": Sk, "causal": causal, "dv": dv, "window": window,
+        "dtype": dtype, "case": case,
+        "design": DESIGN[("flash_attention", dtype)] + (
+            "; " + DESIGN[("flash_attention", "unequal")] if dv != hd else "")
+            + ("" if causal else "; " + DESIGN[("flash_attention", "non-causal")]),
+        "max_abs_err": err, "tol": tol,
+        "ms": cuda_ms(lambda: ops.gqa_flash_attention(q, k, v, **kw), 20, 3),
+        "plain_ms": cuda_ms(lambda: ref.gqa_attention(q, k, v, **kw), 10, 2),
+        "bound_ms": bms, "bound_by": bby, "bound_bytes": nbytes, "bound_ops": nops,
+        "library_ms": lib,
+        "library_call": (f"F.scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)"
+                         if lib is not None else lib_note)})
+    del q, k, v, got, want
 
 
 def _linear_scan_ops(B, S, H, K, V) -> int:
@@ -1008,17 +1053,20 @@ def _reset_launches():
 
 
 def _prefill_vs_stepwise(cfg, params, cache_dtype: str = "bfloat16",
-                         length: int = CONSISTENCY_LEN) -> tuple:
+                         length: int = CONSISTENCY_LEN, encoder_embeds=None) -> tuple:
     """Last-position logits of one prefill of ``length`` tokens (the
     kernel path) against as many decode_step calls (plain PyTorch) over a
-    KV cache of ``cache_dtype``, batch 2: (max abs difference, scale =
-    max |stepwise logits|)."""
+    KV cache of ``cache_dtype``, batch 2, an encoder-decoder's on
+    ``encoder_embeds`` (2, F, d) (decode reads the cross caches that
+    ``init_cache`` fills): (max abs difference, scale = max |stepwise
+    logits|)."""
     import torch
     from repro_torch.models import decoder
     prompt = _check_prompt(cfg, length)
     with torch.no_grad():
-        lp, _, _ = decoder.prefill(cfg, params, prompt, length)
-        cache = decoder.init_cache(cfg, params, 2, length, dtype=getattr(torch, cache_dtype))
+        lp, _, _ = decoder.prefill(cfg, params, prompt, length, encoder_embeds=encoder_embeds)
+        cache = decoder.init_cache(cfg, params, 2, length, encoder_embeds=encoder_embeds,
+                                   dtype=getattr(torch, cache_dtype))
         for t in range(length):
             ls, cache = decoder.decode_step(cfg, params, cache, prompt[:, t:t + 1], t)
     if not (bool(torch.isfinite(lp).all()) and bool(torch.isfinite(ls).all())):
@@ -1261,6 +1309,119 @@ def phase_serve(arch: str, check_dtype: str, readings: tuple = (), fp32_layers: 
     torch.cuda.empty_cache()
     return dict(stats, launches={k: launches[k] for k in per_prefill}, peak_gb=peak,
                 stepwise_gap_by_depth=gaps, **out)
+
+
+def _whisper_frames(cfg, batch: int):
+    """serve()'s stub audio frames: 0.02 N(0, 1) of (batch, 1500, 768),
+    fp32, from ``torch.Generator("cuda").manual_seed(9)``."""
+    import torch
+    return 0.02 * torch.randn((batch, cfg.encoder.num_frames, cfg.d_model), device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(9))
+
+
+def phase_serve_whisper(seed: int = 0) -> dict:
+    """``[serve] whisper_small``: the encoder-decoder at its published
+    configuration (12 encoder and 12 decoder layers, d 768, 12 heads of
+    64, vocab 51,865 padded to 51,968, 1,500 stub frames), weights drawn
+    from ``seed`` in fp32.  First the encoder on the card against the
+    port's CPU path on the same weights, batch 1, fp32, at
+    WHISPER_ENCODER_TOL of its scale; then the weights cast to bf16 and
+    ``serve(batch=4, prompt_len=224, gen=32)``: its prefill runs the
+    encoder over serve()'s frames and the 12 decoder layers, and must
+    launch flash_attention 36 times, 12 each for the encoder's
+    self-attention (non-causal, 1,500 over 1,500), the decoder's causal
+    self-attention (224) and the cross-attention (non-causal, 224 over
+    1,500), and nothing in decode; then the prefill of CONSISTENCY_LEN
+    tokens against as many decode_step calls over the bf16 cache, on
+    serve()'s first 2 frame sets, gated in bf16 at 2e-2 of the logits'
+    scale."""
+    import torch
+    from unittest import mock
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decoder
+    from repro_torch.models.registry import get_config
+    arch = "whisper_small"
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    h0 = time.perf_counter()
+    p32 = decoder.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    say(f"[serve] {arch}: {cfg.encoder.num_layers} encoder + {cfg.num_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} kv) of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.encoder.num_frames} stub audio frames, vocab "
+        f"{cfg.vocab_size} (padded to {cfg.padded_vocab()}): "
+        f"{sum(x.numel() for x in tree_leaves(p32))} parameters drawn in float32 from seed "
+        f"{seed} in {time.perf_counter() - h0:.1f} s")
+    frames = _whisper_frames(cfg, WHISPER_SERVE["batch"])
+    c32 = cfg.replace(compute_dtype="float32")
+    with torch.no_grad():
+        h0 = time.perf_counter()
+        got = decoder._encode(c32, p32, frames[:1])
+        torch.cuda.synchronize()
+        h1 = time.perf_counter()
+        want = decoder._encode(c32, tree_map(lambda x: x.cpu(), {"encoder": p32["encoder"]}),
+                               frames[:1].cpu())
+        h2 = time.perf_counter()
+    enc_err, enc_scale = float((got.cpu() - want).abs().max()), float(want.abs().max())
+    say(f"[serve] {arch}: the encoder over 1 x {cfg.encoder.num_frames} frames in float32, card "
+        f"({h1 - h0:.3f} s) against the CPU path ({h2 - h1:.3f} s) on the same weights: max abs "
+        f"diff {enc_err:.4g} of scale {enc_scale:.4g} ({enc_err / enc_scale:.3g}; limit "
+        f"{WHISPER_ENCODER_TOL:g})")
+    if not (bool(torch.isfinite(got).all()) and enc_err <= WHISPER_ENCODER_TOL * enc_scale):
+        fail(f"{arch}: the encoder on the card is {enc_err:.4g} from the CPU path, beyond "
+             f"{WHISPER_ENCODER_TOL:g} x {enc_scale:.4g}")
+    params = decoder.cast_params(cfg, p32)
+    del p32, got, want
+    torch.cuda.empty_cache()
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    say(f"[serve] {arch}: in {cfg.compute_dtype}: {nbytes / 1e9:.3f} GB on the card")
+    serve(arch, smoke=False, batch=WHISPER_SERVE["batch"], prompt_len=WHISPER_SERVE["prompt_len"],
+          gen=2, params=params, verbose=False)      # warm-up: cuBLAS handles, allocator
+    kinds = {"encoder": 0, "self": 0, "cross": 0}
+    launch = fa._launch
+
+    def seen(q, k, v, window, causal=True, need_lse=False):   # which attention, by its mode
+        kinds["self" if causal else "encoder" if q.shape[1] == k.shape[1] else "cross"] += 1
+        return launch(q, k, v, window, causal, need_lse)
+
+    stats = {}
+    read = _reset_launches()
+    with mock.patch.object(fa, "_launch", seen):
+        toks = serve(arch, smoke=False, **WHISPER_SERVE, params=params, stats=stats,
+                     verbose=False)
+    launches = read()                               # read just after the main path
+    if not stats["logits_finite"]:
+        fail(f"{arch}: non-finite logits in serve()")
+    if toks.shape != (WHISPER_SERVE["batch"], WHISPER_SERVE["gen"]) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        fail(f"{arch}: serve() returned tokens of shape {toks.shape} in "
+             f"[{toks.min()}, {toks.max()}]")
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = 3 * cfg.num_layers
+    if launches != want or kinds != {k: cfg.num_layers for k in kinds}:
+        fail(f"{arch}: kernel launches {launches} ({kinds}), expected {want} (12 encoder, 12 "
+             f"decoder self, 12 cross in the prefill, none in decode)")
+    say(f"[serve] {arch}: serve(batch={WHISPER_SERVE['batch']}, prompt_len="
+        f"{WHISPER_SERVE['prompt_len']}, gen={WHISPER_SERVE['gen']}) after "
+        f"{WHISPER_SERVE['batch']} x {cfg.encoder.num_frames} frames: prefill "
+        f"{stats['prefill_s']:.4f} s (the encoder's included), decode {stats['decode_s']:.4f} s "
+        f"({stats['decode_tok_per_s']:.2f} tok/s), logits finite, kernel launches {launches} "
+        f"({kinds}), sample {toks[0, :8].tolist()}")
+    err, scale = _prefill_vs_stepwise(cfg, params, encoder_embeds=frames[:2])
+    say(f"[serve] {arch}: prefill of {CONSISTENCY_LEN} tokens vs {CONSISTENCY_LEN} decode_step "
+        f"calls at full width, {cfg.num_layers} layers, {cfg.compute_dtype} compute, bfloat16 KV "
+        f"and cross cache: last-position logits max abs diff {err:.4g} of scale {scale:.4g} "
+        f"({err / scale:.3g}; limit 2e-2)")
+    if not err <= 2e-2 * scale:
+        fail(f"{arch}: prefill vs stepwise decode {err:.4g} apart, beyond 2e-2 x {scale:.4g}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    return dict(stats, launches={"flash_attention": launches["flash_attention"]},
+                kinds=kinds, peak_gb=peak, stepwise_gap=err / scale,
+                encoder_gap=enc_err / enc_scale)
 
 
 def _prefix_inputs(cfg, batch: int) -> tuple:
@@ -1892,12 +2053,20 @@ def phase_batched_path(seq_vafl):
 # This slice: the round runtime's scenario clock, checkpoint-resume in all
 # four runtimes, and observability (repro_torch.checkpoint, repro_torch.obs).
 
-CKPT_RUNS = [   # (name, Federation.run overrides, checkpoint_every) on the main federation
-    ("rounds vafl@flaky_edge", dict(mode="round", algorithm="vafl", scenario="flaky_edge"), 2),
-    ("barrier fedavg", dict(mode="event", algorithm="fedavg"), 2),
-    ("sequential vafl", dict(mode="event", algorithm="vafl"), 8),
-    ("batched vafl", dict(mode="event", algorithm="vafl", engine="batched"), 14),
-    ("batched afl K=4", dict(mode="event", algorithm="afl", engine="batched", buffer_size=4), 14),
+# (name, Federation.run overrides, checkpoint_every, rounds) on the main
+# federation.  The sequential loop runs 2 rounds (14 events, cut from 3:
+# its checkpoint at event 8 still leaves 6 to resume); the round runtime,
+# the barrier and the batched engine keep 3, which their last checkpoint
+# needs to fall short of the run's end (they save at a round's or a
+# window's end)
+SEQ_CKPT_ROUNDS = 2
+CKPT_RUNS = [
+    ("rounds vafl@flaky_edge", dict(mode="round", algorithm="vafl", scenario="flaky_edge"), 2, 3),
+    ("barrier fedavg", dict(mode="event", algorithm="fedavg"), 2, 3),
+    ("sequential vafl", dict(mode="event", algorithm="vafl"), 8, SEQ_CKPT_ROUNDS),
+    ("batched vafl", dict(mode="event", algorithm="vafl", engine="batched"), 14, 3),
+    ("batched afl K=4", dict(mode="event", algorithm="afl", engine="batched", buffer_size=4), 14,
+     3),
 ]
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy")
@@ -2016,7 +2185,8 @@ def _kill_child(root: str, path: str) -> None:
     every 8 events into ``path``, until the parent kills it."""
     sys.path.insert(0, str(Path(root) / "src"))
     fed = algo1_federation()
-    fed.run(rounds=3, mode="event", algorithm="vafl", checkpoint_path=path, checkpoint_every=8)
+    fed.run(rounds=SEQ_CKPT_ROUNDS, mode="event", algorithm="vafl", checkpoint_path=path,
+            checkpoint_every=8)
 
 
 def _sigkill_resume(path: str, ref, ref_params, cap) -> dict:
@@ -2048,11 +2218,12 @@ def _sigkill_resume(path: str, ref, ref_params, cap) -> dict:
         fail(f"the child was not killed mid-run (exit code {child.exitcode})")
     with open(path, "rb") as f:
         at = pickle.load(f)["state"]["event"]
-    res = cap.run(rounds=3, mode="event", algorithm="vafl", checkpoint_path=path, resume=True)
+    res = cap.run(rounds=SEQ_CKPT_ROUNDS, mode="event", algorithm="vafl", checkpoint_path=path,
+                  resume=True)
     same = _everything(res) == _everything(ref) and _same_params(cap.final(path), ref_params)
     say(f"[checkpoint] SIGKILL: a spawned child ran sequential vafl with checkpoint_every=8, "
         f"was killed {time.perf_counter() - h0:.2f} s after its start once its checkpoint at "
-        f"event {at} of 21 existed (exit code {child.exitcode}); resumed here from that file: "
+        f"event {at} of {7 * SEQ_CKPT_ROUNDS} existed (exit code {child.exitcode}); resumed here from that file: "
         f"{'bit-equal' if same else 'DIFFERS'} to the uninterrupted run")
     if not same:
         fail("the run resumed after SIGKILL differs from the uninterrupted run")
@@ -2104,25 +2275,25 @@ def phase_checkpoint():
     whole = {}
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
     try:
-        for name, kw, every in CKPT_RUNS:
+        for name, kw, every, rounds in CKPT_RUNS:
             path = f"{tmp.name}/{len(whole)}.ckpt"
             trace = f"{tmp.name}/{len(whole)}.jsonl"
             g0, t0 = gd_ops.launches, tq_ops.launches
             h0 = time.perf_counter()
-            a = cap.run(rounds=3, **kw)
+            a = cap.run(rounds=rounds, **kw)
             torch.cuda.synchronize()
             secs = time.perf_counter() - h0
             a_params = cap.final()
             la = (gd_ops.launches - g0, tq_ops.launches - t0)
             saves.clear()
             g1, t1 = gd_ops.launches, tq_ops.launches
-            b = cap.run(rounds=3, checkpoint_path=path, checkpoint_every=every,
+            b = cap.run(rounds=rounds, checkpoint_path=path, checkpoint_every=every,
                         obs=ObsConfig(trace_jsonl=trace), **kw)
             lb = (gd_ops.launches - g1, tq_ops.launches - t1)
             at_save = (saves[-1][0] - g1, saves[-1][1] - t1)
             unperturbed = _everything(b) == _everything(a) and _same_params(cap.final(), a_params)
             g2, t2 = gd_ops.launches, tq_ops.launches
-            c = cap.run(rounds=3, checkpoint_path=path, resume=True, **kw)
+            c = cap.run(rounds=rounds, checkpoint_path=path, resume=True, **kw)
             lc = (gd_ops.launches - g2, tq_ops.launches - t2)
             resumed = _everything(c) == _everything(a) and _same_params(cap.final(path), a_params)
             with open(path, "rb") as f:
@@ -2142,13 +2313,13 @@ def phase_checkpoint():
             if lb != la or lc != (la[0] - at_save[0], la[1] - at_save[1]):
                 fail(f"checkpoint {name}: launches whole {la}, checkpointed {lb}, resumed {lc}, "
                      f"at the checkpoint {at_save}")
-            if sum(lc) == 0 or not 0 < st[unit] < (3 if unit == "round" else 21):
+            if sum(lc) == 0 or not 0 < st[unit] < (rounds if unit == "round" else 7 * rounds):
                 fail(f"checkpoint {name}: the resumed part is empty ({unit} {st[unit]}, "
                      f"launches {lc})")
             whole[name] = (a, a_params, secs)
         # an extending resume: a 2-round checkpoint of the batched engine
         # (whose writer never popped a next window) resumed to 3 rounds
-        name, kw, _ = CKPT_RUNS[3]
+        name, kw, _, _ = CKPT_RUNS[3]
         path = f"{tmp.name}/ext.ckpt"
         cap.run(rounds=2, checkpoint_path=path, checkpoint_every=7, **kw)
         c = cap.run(rounds=3, checkpoint_path=path, resume=True, **kw)
@@ -2229,10 +2400,10 @@ def phase_obs(whole):
     cap = _Captured(algo1_federation())
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_obs_")
     try:
-        for k, (name, kw, _) in enumerate(CKPT_RUNS):
+        for k, (name, kw, _, rounds) in enumerate(CKPT_RUNS):
             trace = f"{tmp.name}/{k}.jsonl"
             h0 = time.perf_counter()
-            res = cap.run(rounds=3, obs=ObsConfig(trace_jsonl=trace), **kw)
+            res = cap.run(rounds=rounds, obs=ObsConfig(trace_jsonl=trace), **kw)
             torch.cuda.synchronize()
             secs = time.perf_counter() - h0
             a, a_params, a_secs = whole[name]
@@ -3082,7 +3253,7 @@ def phase_flash_backward(rows: list):
         q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dt) for _ in range(2))
         do = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
-        o, lse = ops._launch(q, k, v, window, True)
+        o, lse = ops._launch(q, k, v, window, need_lse=True)
         got = ops._launch_bwd(q, k, v, o, do, lse, window)
         again = ops._launch_bwd(q, k, v, o, do, lse, window)
         want = ref.gqa_attention_bwd(q, k, v, do, window=window)
@@ -3222,7 +3393,7 @@ def _attention_route(fwd_kernel: bool, bwd: str):
         @staticmethod
         def forward(ctx, q, k, v, window):
             if fwd_kernel:
-                o, lse = ops._launch(q, k, v, window, True)
+                o, lse = ops._launch(q, k, v, window, need_lse=True)
             else:
                 o, lse = ref.gqa_attention(q, k, v, window), _plain_lse(q, k, window)
             ctx.window = window
@@ -3902,6 +4073,11 @@ def main() -> None:
     served["command_r_35b"] = phase_serve("command_r_35b", "bfloat16",
                                           fp32_layers=FP32_CUT_LAYERS)
     mark("serve-command-r")
+    # whisper_small (the encoder-decoder: its encoder and cross-attention
+    # through the kernel's non-causal mode) is drawn in fp32 for the
+    # encoder's card-vs-CPU check and served in bf16
+    whisper = phase_serve_whisper()
+    mark("serve-whisper")
     say("[time] phases (host seconds): " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 
@@ -3969,6 +4145,15 @@ def main() -> None:
                          launches=served[llava]["prefix"]["launches"])
     main_fa = with_model(main_fa, llava, "llava_serve", fa_by["llava_serve"])
     main_fa["minicpm3_dv"] = fa_by["minicpm3_4b"]["dv"]
+    # whisper_small: its encoder's, its decoder's and its cross-attention's
+    # shapes (Sk beside each), 12 launches each of the prefill's 36
+    wh_by = {kind: next(r for r in fa_rows if r["case"] == case)
+             for kind, case in FA_WHISPER.items()}
+    for kind, z in wh_by.items():
+        main_fa = with_model(main_fa, None, f"whisper_{kind}", z,
+                             launches=whisper["kinds"][kind])
+        main_fa[f"whisper_{kind}_sk"], main_fa[f"whisper_{kind}_causal"] = z["sk"], z["causal"]
+    main_fa["whisper_launches"] = whisper["launches"]["flash_attention"]
     main_ls = with_model(dict(ls_rows[0], launches=served["rwkv6_3b"]["launches"]["linear_scan"],
                               tensor_core_instructions=sass["linear_scan"]),
                          "zamba2_7b", "zamba2", ls_z)
@@ -4043,6 +4228,18 @@ def main() -> None:
                 f"{px['launches'] * ms / 1e3 / px['prefill_s']:.1%} of the prefill; prefix "
                 f"prefill + one decode_step vs prefill {px['bf16_gap']:.3g} of the logits' scale "
                 f"in bf16 (not gated)")
+    wk = whisper["kinds"]
+    say(f"[time] serve whisper_small (host clock, synchronized): prefill "
+        f"{whisper['prefill_s']:.4f} s for {WHISPER_SERVE['batch']} x "
+        f"{WHISPER_SERVE['prompt_len']} tokens after {WHISPER_SERVE['batch']} x 1500 frames (the "
+        f"encoder's included), decode {whisper['decode_tok_per_s']:.2f} tok/s "
+        f"({WHISPER_SERVE['batch']} x {WHISPER_SERVE['gen']} tokens in "
+        f"{whisper['decode_s']:.4f} s); flash_attention "
+        + ", ".join(f"{kind} {wk[kind]} x {z['ms']:.4f} ms" for kind, z in wh_by.items())
+        + f" = {sum(wk[kind] * z['ms'] for kind, z in wh_by.items()) / 1e3 / whisper['prefill_s']:.1%}"
+        f" of the prefill; peak device memory {whisper['peak_gb']:.2f} GB; prefill vs stepwise "
+        f"{whisper['stepwise_gap']:.3g} of the logits' scale (bf16), the encoder card vs CPU "
+        f"{whisper['encoder_gap']:.3g} (fp32)")
     # the backward's row: the train path's shape (minicpm_2b, bf16, no
     # window); its launches are the [train] path's, one 5-step
     # make_train_step run's beside them

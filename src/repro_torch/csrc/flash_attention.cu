@@ -1,4 +1,5 @@
-// Causal flash attention, forward, on the model layer's own layout.
+// Flash attention, forward, on the model layer's own layout: causal, or
+// non-causal with queries and keys of their own lengths.
 //
 // Replaces the Pallas TPU kernel flash_attention
 // (src/repro/kernels/flash_attention/kernel.py) together with what its
@@ -11,13 +12,19 @@
 // TPU kernel does.  q is (B, S, H, D) and k, v (B, S, KV, D), each read
 // through its own strides with D unit-stride, so neither the kv repeat
 // nor the (B*H, S, D) transpose of the TPU wrapper is materialised.
+// The non-causal mode (the CAUSAL template flag false) sums over every
+// key s < Sk of k, v (B, Sk, KV, D) for each query t < Sq of q (B, Sq, H,
+// D): the reference model's plain attention with a mask of all ones,
+// which whisper's encoder self-attention (Sq = Sk = 1500 frames) and its
+// cross-attention (the decoder's Sq queries over the encoder's Sk frames)
+// run.  The TPU kernel is causal only; no window is taken without it.
 // v (and o) may be narrower than q and k: Multi-head Latent Attention's
 // expanded form (minicpm3_4b) has q.k head dim DQK = 96 and v head dim
 // DV = 64, and D above reads DQK for q and k, DV for v and o; the scale
 // stays 1 / sqrt(DQK).
-// Rows and keys past S (a ragged last tile) are masked, so any S works;
-// key tiles wholly above the diagonal or wholly outside the window are
-// never loaded.  For training, both routes also write each row's
+// Rows past Sq and keys past Sk (a ragged last tile) are masked, so any
+// lengths work; causal, key tiles wholly above the diagonal or wholly
+// outside the window are never loaded, and non-causal every key tile is.  For training, both routes also write each row's
 // logsumexp of the scaled scores when given an lse buffer, which the
 // backward (flash_attention_bwd.cu) recomputes the weights from; serving
 // passes none and runs the same code with one untaken branch a row.
@@ -26,6 +33,9 @@
 // B * H * S^2 * (DQK + DV) / 2 multiply-adds over about
 // B * S * ((H + KV) * DQK + (KV + H) * DV) elements moved, hundreds of
 // operations per byte at S = 2048: the bf16 tensor-core rate is the bar.
+// Non-causal it is B * H * Sq * Sk * (DQK + DV) multiply-adds; at
+// whisper's cross-attention (224 queries, 1500 keys, hd 64) the bytes
+// are the larger term.
 //
 // Two routes, chosen by the input type:
 //
@@ -48,7 +58,8 @@
 // bf16 in registers: the S accumulator's layout is the A-operand layout
 // of the next mma, so P never touches shared memory.
 // A warp skips a key tile that is wholly masked for its 16 rows and masks
-// only the tiles that cross its diagonal, the window's edge or S.  Rows
+// only the tiles that cross its diagonal, the window's edge or Sk
+// (non-causal: only the last, ragged one).  Rows
 // must be 16-byte aligned for cp.async; the wrapper (ops.py) copies a
 // tensor whose base or strides are not.  Shared memory: (128 + 2 * 64)
 // rows of DQK + 8 bf16 (Q, and K's two stages) and 2 * 64 rows of DV + 8
@@ -69,7 +80,8 @@
 //
 // Head dims 32, 64, 112 and 128, and the unequal (DQK, DV) pairs (96, 64)
 // and (48, 32) (minicpm3_4b and its smoke width), a template instance
-// each.
+// each, in both modes: the mode is a template flag, so the causal
+// instances compile to the code they had before the non-causal mode.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +102,8 @@ struct Args {
   void* o;
   float* lse;                            // (B, H, S) fp32 or null
   long long sq[3], sk[3], sv[3], so[3];  // element strides over (b, s, head)
-  int S, H, KV, window;                  // window <= 0: none
+  int Sq, Sk;                            // query and key positions (equal when causal)
+  int H, KV, window;                     // window <= 0: none (causal only)
   float scale;
 };
 
@@ -105,7 +118,8 @@ constexpr size_t bf16_smem_bytes() {
 }
 
 // ROWS rows of HD bf16 from src (row stride `stride` elements) into dst
-// (pitch HD + 8), starting at sequence position s0; rows past S are zeros.
+// (pitch HD + 8), starting at sequence position s0; rows past S (q's Sq or
+// k's and v's Sk) are zeros.
 // A tile whose chunks do not split evenly over the block (64 rows at
 // HD = 112: 896 chunks over 256 threads; at HD = 48, 384) ends in a
 // guarded pass.
@@ -125,7 +139,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
   constexpr int P = DQK + 8;   // shared-memory row pitch of Q and K, bf16 elements
   constexpr int PV = DV + 8;   // ... of V
@@ -147,14 +161,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + b * a.so[0] + h * a.so[2];
 
   // key tiles holding an unmasked key for some row of this query tile
-  const int q_last = min(q0 + kBQ, a.S) - 1;
-  const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  const int kt0 = k_first / kBK, kt1 = q_last / kBK;
+  const int q_last = min(q0 + kBQ, a.Sq) - 1;
+  const int k_first = CAUSAL && a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int kt0 = k_first / kBK, kt1 = CAUSAL ? q_last / kBK : (a.Sk - 1) / kBK;
 
-  load_rows<DQK, kBQ>(q_s, qg, a.sq[1], q0, a.S, tid);
+  load_rows<DQK, kBQ>(q_s, qg, a.sq[1], q0, a.Sq, tid);
   mma::cp_async_commit();
-  load_rows<DQK, kBK>(k_s, kg, a.sk[1], kt0 * kBK, a.S, tid);
-  load_rows<DV, kBK>(v_s, vg, a.sv[1], kt0 * kBK, a.S, tid);
+  load_rows<DQK, kBK>(k_s, kg, a.sk[1], kt0 * kBK, a.Sk, tid);
+  load_rows<DV, kBK>(v_s, vg, a.sv[1], kt0 * kBK, a.Sk, tid);
   mma::cp_async_commit();
   mma::cp_async_wait<1>();  // the Q group has landed
   __syncthreads();
@@ -177,15 +191,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
     mma::cp_async_wait<0>();  // tile kt has landed ...
     __syncthreads();          // ... for every thread, and tile kt - 1 is no longer read
     if (kt < kt1) {
-      load_rows<DQK, kBK>(k_s + (st ^ 1) * kBK * P, kg, a.sk[1], (kt + 1) * kBK, a.S, tid);
-      load_rows<DV, kBK>(v_s + (st ^ 1) * kBK * PV, vg, a.sv[1], (kt + 1) * kBK, a.S, tid);
+      load_rows<DQK, kBK>(k_s + (st ^ 1) * kBK * P, kg, a.sk[1], (kt + 1) * kBK, a.Sk, tid);
+      load_rows<DV, kBK>(v_s + (st ^ 1) * kBK * PV, vg, a.sv[1], (kt + 1) * kBK, a.Sk, tid);
       mma::cp_async_commit();
     }
     const int k0 = kt * kBK;
-    if (wq0 >= a.S || k0 > wq0 + 15 || (a.window > 0 && wq0 - (k0 + kBK - 1) >= a.window))
+    if (wq0 >= a.Sq ||
+        (CAUSAL && (k0 > wq0 + 15 || (a.window > 0 && wq0 - (k0 + kBK - 1) >= a.window))))
       continue;  // every key of the tile is masked for this warp's rows
-    const bool need_mask = k0 + kBK - 1 > wq0 || k0 + kBK > a.S ||
-                           (a.window > 0 && wq0 + 15 - k0 >= a.window);
+    const bool need_mask =
+        CAUSAL ? k0 + kBK - 1 > wq0 || k0 + kBK > a.Sk ||
+                     (a.window > 0 && wq0 + 15 - k0 >= a.window)
+               : k0 + kBK > a.Sk;
     const __nv_bfloat16* kt_s = k_s + st * kBK * P;
     const __nv_bfloat16* vt_s = v_s + st * kBK * PV;
 
@@ -208,14 +225,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
 
     // online softmax on rows wq0 + g (e = 0, 1) and wq0 + g + 8 (e = 2, 3),
     // kept in raw scores: the scale goes into the exponent's FFMA.  Only
-    // a tile that crosses the diagonal, the window's edge or S masks.
+    // a tile that crosses the diagonal, the window's edge or Sk masks.
     if (need_mask) {
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = wq0 + g + (e >> 1) * 8, key = k0 + j * 8 + 2 * c + (e & 1);
-          if (!(key <= row && key < a.S && (a.window <= 0 || row - key < a.window)))
+          if (!(key < a.Sk && (!CAUSAL || (key <= row &&
+                                           (a.window <= 0 || row - key < a.window)))))
             s[j][e] = kNegInf;
         }
     }
@@ -275,12 +293,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = wq0 + g + 8 * i;
-    if (row >= a.S) continue;
+    if (row >= a.Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     // the weights were exp((s - m) scale), so the row's logsumexp of the
     // scaled scores is m scale + log l
     if (a.lse != nullptr && c == 0)
-      a.lse[((long long)b * a.H + h) * a.S + row] = m[i] * a.scale + logf(l[i]);
+      a.lse[((long long)b * a.H + h) * a.Sq + row] = m[i] * a.scale + logf(l[i]);
     __nv_bfloat16* orow = og + row * a.so[1] + 2 * c;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -299,7 +317,7 @@ constexpr size_t f32_smem_bytes(int dqk, int dv) {
                           (size_t)kBK * dv + (size_t)kF32BQ * (kBK + 1));
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
   extern __shared__ float f32_smem[];
   constexpr int QLD = DQK + 1;
@@ -321,7 +339,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
 
   for (int i = tid; i < kF32BQ * DQK; i += kThreads) {
     const int r = i / DQK, d = i % DQK, s = q0 + r;
-    q_s[r * QLD + d] = s < a.S ? qg[s * a.sq[1] + d] : 0.f;
+    q_s[r * QLD + d] = s < a.Sq ? qg[s * a.sq[1] + d] : 0.f;
   }
 
   float acc[4][CPT], m[4], l[4];
@@ -334,18 +352,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
   }
 
   // key tiles holding an unmasked key for some row of this query tile
-  const int q_last = min(q0 + kF32BQ, a.S) - 1;
-  const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  for (int kt = k_first / kBK; kt <= q_last / kBK; ++kt) {
+  const int q_last = min(q0 + kF32BQ, a.Sq) - 1;
+  const int k_first = CAUSAL && a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int kt1 = CAUSAL ? q_last / kBK : (a.Sk - 1) / kBK;
+  for (int kt = k_first / kBK; kt <= kt1; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's readers of k_s, v_s, p_s are done
     for (int i = tid; i < kBK * DQK; i += kThreads) {
       const int r = i / DQK, d = i % DQK, s = k0 + r;
-      k_s[r * QLD + d] = s < a.S ? kg[s * a.sk[1] + d] : 0.f;
+      k_s[r * QLD + d] = s < a.Sk ? kg[s * a.sk[1] + d] : 0.f;
     }
     for (int i = tid; i < kBK * DV; i += kThreads) {
       const int r = i / DV, d = i % DV, s = k0 + r;
-      v_s[r * DV + d] = s < a.S ? vg[s * a.sv[1] + d] : 0.f;
+      v_s[r * DV + d] = s < a.Sk ? vg[s * a.sv[1] + d] : 0.f;
     }
     __syncthreads();
 
@@ -375,7 +394,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        ok[j] = kp <= qp && kp < a.S && (a.window <= 0 || qp - kp < a.window);
+        ok[j] = kp < a.Sk && (!CAUSAL || (kp <= qp && (a.window <= 0 || qp - kp < a.window)));
         sc[i][j] = ok[j] ? sc[i][j] * a.scale : kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -414,53 +433,62 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty + 16 * i;
-    if (qp >= a.S) continue;
+    if (qp >= a.Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
     if (a.lse != nullptr && tx == 0)
-      a.lse[((long long)b * a.H + h) * a.S + qp] = m[i] + logf(l[i]);  // m is scaled here
+      a.lse[((long long)b * a.H + h) * a.Sq + qp] = m[i] + logf(l[i]);  // m is scaled here
 #pragma unroll
     for (int c = 0; c < CPT; ++c) og[qp * a.so[1] + tx + 16 * c] = acc[i][c] / den;
   }
 }
 
-template <int DQK, int DV>
-int launch(const Args& a, int B, int dtype, cudaStream_t s) {
+template <int DQK, int DV, bool CAUSAL>
+int launch_mode(const Args& a, int B, int dtype, cudaStream_t s) {
   static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims are whole k-steps and column groups");
   if (dtype == 0) {
     const size_t bytes = f32_smem_bytes(DQK, DV);
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<DQK, DV>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<DQK, DV, CAUSAL>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)((a.S + kF32BQ - 1) / kF32BQ), (unsigned)a.H, (unsigned)B);
-    flash_fwd_f32<DQK, DV><<<grid, kThreads, bytes, s>>>(a);
+    const dim3 grid((unsigned)((a.Sq + kF32BQ - 1) / kF32BQ), (unsigned)a.H, (unsigned)B);
+    flash_fwd_f32<DQK, DV, CAUSAL><<<grid, kThreads, bytes, s>>>(a);
   } else {
     const size_t bytes = bf16_smem_bytes<DQK, DV>();
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<DQK, DV>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<DQK, DV, CAUSAL>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)((a.S + kBQ - 1) / kBQ), (unsigned)a.H, (unsigned)B);
-    flash_fwd_bf16<DQK, DV><<<grid, kThreads, bytes, s>>>(a);
+    const dim3 grid((unsigned)((a.Sq + kBQ - 1) / kBQ), (unsigned)a.H, (unsigned)B);
+    flash_fwd_bf16<DQK, DV, CAUSAL><<<grid, kThreads, bytes, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
+template <int DQK, int DV>
+int launch(const Args& a, int B, int dtype, bool causal, cudaStream_t s) {
+  return causal ? launch_mode<DQK, DV, true>(a, B, dtype, s)
+                : launch_mode<DQK, DV, false>(a, B, dtype, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  hd is q's and
-// k's head dim, dv v's and o's: equal (32, 64, 112, 128) or one of the
-// pairs (96, 64) and (48, 32).  strides: 12 element strides, (b, s, head)
-// of q, k, v, o in that order; the head dim is unit-stride in all four.  For bfloat16 every row of q, k, v
-// must start 16-byte aligned (base pointers and strides), and o's rows
-// 4-byte aligned.  window <= 0 means no window.  lse, when not null,
-// receives each row's logsumexp of the scaled scores, fp32 (B, H, S)
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Sq is q's and
+// o's positions, Sk k's and v's; causal != 0 needs Sq == Sk, and a window
+// (window > 0) needs causal.  hd is q's and k's head dim, dv v's and o's:
+// equal (32, 64, 112, 128) or one of the pairs (96, 64) and (48, 32).
+// strides: 12 element strides, (b, s, head) of q, k, v, o in that order;
+// the head dim is unit-stride in all four.  For bfloat16 every row of q,
+// k, v must start 16-byte aligned (base pointers and strides), and o's
+// rows 4-byte aligned.  window <= 0 means no window.  lse, when not null,
+// receives each row's logsumexp of the scaled scores, fp32 (B, H, Sq)
 // contiguous, which the backward (csrc/flash_attention_bwd.cu) reads;
 // serving passes null.  Returns the CUDA error of the launch (0 on
 // success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int S, int H, int KV, int hd, int dv,
-                                   const long long* strides, int window, float scale,
-                                   float* lse, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || (dtype != 0 && dtype != 1))
+                                   int dtype, int B, int Sq, int Sk, int H, int KV, int hd,
+                                   int dv, const long long* strides, int window, int causal,
+                                   float scale, float* lse, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
+      (dtype != 0 && dtype != 1) || (causal ? Sq != Sk : window > 0))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -474,7 +502,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     a.sv[i] = strides[6 + i];
     a.so[i] = strides[9 + i];
   }
-  a.S = S;
+  a.Sq = Sq;
+  a.Sk = Sk;
   a.H = H;
   a.KV = KV;
   a.window = window;
@@ -482,14 +511,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dv == hd) {
     switch (hd) {
-      case 32: return launch<32, 32>(a, B, dtype, s);
-      case 64: return launch<64, 64>(a, B, dtype, s);
-      case 112: return launch<112, 112>(a, B, dtype, s);
-      case 128: return launch<128, 128>(a, B, dtype, s);
+      case 32: return launch<32, 32>(a, B, dtype, causal != 0, s);
+      case 64: return launch<64, 64>(a, B, dtype, causal != 0, s);
+      case 112: return launch<112, 112>(a, B, dtype, causal != 0, s);
+      case 128: return launch<128, 128>(a, B, dtype, causal != 0, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (hd == 96 && dv == 64) return launch<96, 64>(a, B, dtype, s);
-  if (hd == 48 && dv == 32) return launch<48, 32>(a, B, dtype, s);
+  if (hd == 96 && dv == 64) return launch<96, 64>(a, B, dtype, causal != 0, s);
+  if (hd == 48 && dv == 32) return launch<48, 32>(a, B, dtype, causal != 0, s);
   return (int)cudaErrorInvalidValue;
 }

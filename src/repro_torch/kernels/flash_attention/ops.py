@@ -4,7 +4,13 @@ layout in, causal attention out, with its gradient.  Port of
 
 ``gqa_flash_attention`` takes q, k (B, S, H | KV, hd) and v (B, S, KV,
 dv) as they come out of the attention layer's projections and returns
-(B, S, H, dv) in q's dtype.  dv is hd (``HEAD_DIMS``) but for MLA's
+(B, S, H, dv) in q's dtype.  With ``causal=False`` it attends to every
+key, and k and v may hold Sk positions where q holds Sq (whisper's
+encoder self-attention, and its cross-attention from the decoder's
+queries to the encoder's frames): the reference's plain ``_sdpa`` with a
+mask of all ones, which the TPU kernel, causal only, does not compute.
+A window needs ``causal``, and so does Sq = Sk; both are refused in
+Python before any launch.  dv is hd (``HEAD_DIMS``) but for MLA's
 unequal pairs (``UNEQUAL_HEAD_DIMS``: minicpm3_4b's q.k 96 / v 64 and
 its smoke width's 48 / 32), which the forward kernel takes as template
 instances of their own.  It is ``FlashAttention``, a
@@ -18,7 +24,7 @@ instances of their own.  It is ``FlashAttention``, a
   q, k and v 16-byte aligned: a tensor whose base pointer or (b, s,
   head) strides do not allow that is first copied to a contiguous one
   (``needs_copy``).  With grad enabled the launch also writes each row's
-  logsumexp ``lse`` (fp32, (B, H, S)) for the backward; under
+  logsumexp ``lse`` (fp32, (B, H, Sq)) for the backward; under
   ``torch.no_grad`` (serving) it writes none and is the same launch as
   before training existed.
 * backward: CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (no
@@ -27,7 +33,8 @@ instances of their own.  It is ``FlashAttention``, a
   forward's equal head dims, 32, 64, 112 (zamba2_7b's shared attention:
   the bf16 route's tiles hold 112 columns padded with zeros to 128) and
   128 (``BWD_HEAD_DIMS``); an unequal pair raises ``ValueError`` before
-  any launch (MLA trains on the CPU only).  The route
+  any launch (MLA trains on the CPU only), and so does the non-causal
+  mode, or Sq != Sk (whisper trains on the CPU only).  The route
   follows the dtype.  bf16 (the ``[train]`` path) runs every product on
   the tensor cores (``wgmma``, one warpgroup a 64-row tile, P and dS
   rounded to bf16 in registers) with ``cp.async`` rings of bf16 tiles,
@@ -76,9 +83,9 @@ BWD_BLOCKS_PER_SM = 2      # its dK/dV blocks resident an SM at hd 128 (255 regi
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.library("flash_attention").flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                      ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -105,12 +112,30 @@ def needs_copy(x) -> bool:
     return x.data_ptr() % 16 != 0 or any(st * esize % 16 for st in x.stride()[:3])
 
 
-def _check_launch(q, backward: bool = False, dv=None):
-    """Raise for what the kernels do not take: q (B, S, H, hd) and a v
-    head dim ``dv`` (hd where None)."""
+def _check_mode(Sq, Sk, window, causal):
+    """Raise for a mode neither the kernel nor the plain version takes: a
+    causal pair of unequal lengths (the causal mask is positional over
+    one sequence), or a window without ``causal``."""
+    if causal and Sq != Sk:
+        raise ValueError(f"causal flash_attention takes as many keys as queries, got Sq={Sq}, "
+                         f"Sk={Sk}: pass causal=False to attend to every key")
+    if window is not None and not causal:
+        raise ValueError(f"a window ({window}) needs causal flash_attention")
+
+
+def _check_launch(q, backward: bool = False, dv=None, sk=None, window=None, causal=True):
+    """Raise for what the kernels do not take: q (B, Sq, H, hd), a v head
+    dim ``dv`` (hd where None), ``sk`` keys (Sq where None), the window and
+    the mode."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
     B, S, H, hd = q.shape
+    sk = S if sk is None else sk
+    _check_mode(S, sk, window, causal)
+    if backward and not causal:
+        raise ValueError(f"flash_attention backward kernel is causal only, got causal=False "
+                         f"(Sq={S}, Sk={sk}): whisper trains on the CPU only (ROADMAP.md §1 "
+                         f"item 11)")
     dv = hd if dv is None else dv
     if dv != hd:
         if backward:
@@ -130,13 +155,13 @@ def _check_launch(q, backward: bool = False, dv=None):
                          f"got B={B}, H={H}")
 
 
-def _launch(q, k, v, window, need_lse=False):
+def _launch(q, k, v, window, causal=True, need_lse=False):
     """The forward kernel: (o, lse), lse None unless ``need_lse``."""
     global launches
     dv = v.shape[-1]
-    _check_launch(q, dv=dv)
+    _check_launch(q, dv=dv, sk=k.shape[1], window=window, causal=causal)
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
     q, k, v = (x.clone(memory_format=torch.contiguous_format) if needs_copy(x) else x
                for x in (q, k, v))
     fn = _kernel()
@@ -147,8 +172,8 @@ def _launch(q, k, v, window, need_lse=False):
         strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                            *v.stride()[:3], *out.stride()[:3])
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-                 B, S, H, KV, hd, dv, ctypes.addressof(strides), window or 0, 1.0 / hd ** 0.5,
-                 lse.data_ptr() if lse is not None else None,
+                 B, S, Sk, H, KV, hd, dv, ctypes.addressof(strides), window or 0, int(causal),
+                 1.0 / hd ** 0.5, lse.data_ptr() if lse is not None else None,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
@@ -164,10 +189,10 @@ def bwd_plan(B, S, H, KV, sms):
     return max(1, min(H // KV, -(-2 * sms * BWD_BLOCKS_PER_SM // blocks)))
 
 
-def _launch_bwd(q, k, v, o, do, lse, window):
+def _launch_bwd(q, k, v, o, do, lse, window, causal=True):
     """The backward kernels: (dq, dk, dv) in q's dtype."""
     global bwd_launches
-    _check_launch(q, backward=True, dv=v.shape[-1])
+    _check_launch(q, backward=True, dv=v.shape[-1], sk=k.shape[1], window=window, causal=causal)
     if not q.dtype == o.dtype == do.dtype or lse.dtype != torch.float32:
         raise TypeError(f"flash_attention backward takes q, o, dO of one dtype and fp32 lse, "
                         f"got {q.dtype}, {o.dtype}, {do.dtype}, {lse.dtype}")
@@ -206,24 +231,24 @@ def _launch_bwd(q, k, v, o, do, lse, window):
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal GQA attention with its gradient: the kernels on CUDA
-    tensors, the plain versions on CPU tensors.  ``apply(q, k, v,
-    window, need_lse)`` returns (o, lse); lse is None on the CPU and
-    unless ``need_lse``."""
+    """GQA attention, causal or not, with its gradient: the kernels on
+    CUDA tensors, the plain versions on CPU tensors.  ``apply(q, k, v,
+    window, causal, need_lse)`` returns (o, lse); lse is None on the CPU
+    and unless ``need_lse``."""
 
     @staticmethod
-    def forward(q, k, v, window, need_lse):
+    def forward(q, k, v, window, causal, need_lse):
         if q.device.type == "cpu":
-            return ref.gqa_attention(q, k, v, window=window), None
+            return ref.gqa_attention(q, k, v, window=window, causal=causal), None
         if q.device.type != "cuda":
             raise RuntimeError(f"flash_attention runs on CPU or CUDA tensors, not {q.device}")
-        return _launch(q, k, v, window, need_lse)
+        return _launch(q, k, v, window, causal, need_lse)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, window, _ = inputs
+        q, k, v, window, causal, _ = inputs
         o, lse = output
-        ctx.window = window
+        ctx.window, ctx.causal = window, causal
         if lse is not None:
             ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -233,16 +258,16 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
         if q.device.type == "cpu":
-            dq, dk, dv = ref.gqa_attention_bwd(q, k, v, do, window=ctx.window)
+            dq, dk, dv = ref.gqa_attention_bwd(q, k, v, do, window=ctx.window, causal=ctx.causal)
         elif lse is None:
             raise RuntimeError("flash_attention backward on the card needs the forward's "
                                "logsumexp: the forward ran with grad disabled")
         else:
-            dq, dk, dv = _launch_bwd(q, k, v, o, do, lse, ctx.window)
-        return dq, dk, dv, None, None
+            dq, dk, dv = _launch_bwd(q, k, v, o, do, lse, ctx.window, ctx.causal)
+        return dq, dk, dv, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, window, need_lse):
+    def vmap(info, in_dims, q, k, v, window, causal, need_lse):
         n = info.batch_size
 
         def fold(x, d):   # (n, B, ...) -> (n B, ...): the vmapped axis joins the batch
@@ -250,27 +275,29 @@ class FlashAttention(torch.autograd.Function):
             return x.reshape((n * x.shape[1],) + tuple(x.shape[2:]))
 
         o, lse = FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
-                                      fold(v, in_dims[2]), window, need_lse)
+                                      fold(v, in_dims[2]), window, causal, need_lse)
         o = o.reshape((n, -1) + tuple(o.shape[1:]))
         if lse is None:
             return (o, None), (0, None)
         return (o, lse.reshape((n, -1) + tuple(lse.shape[1:]))), (0, 0)
 
 
-def gqa_flash_attention(q, k, v, *, window=None):
-    """q (B,S,H,hd), k (B,S,KV,hd), v (B,S,KV,dv) -> (B,S,H,dv), causal;
-    ``window`` keeps keys with ``q - k < window``.  Differentiable in q, k
-    and v (on the card only where dv == hd)."""
+def gqa_flash_attention(q, k, v, *, window=None, causal=True):
+    """q (B,Sq,H,hd), k (B,Sk,KV,hd), v (B,Sk,KV,dv) -> (B,Sq,H,dv): causal
+    (Sq = Sk; ``window`` keeps keys with ``q - k < window``), or with
+    ``causal=False`` over every key.  Differentiable in q, k and v (on the
+    card only where causal and dv == hd)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
-        raise ValueError(f"need q (B,S,H,hd), k (B,S,KV,hd) and v (B,S,KV,dv), got "
+        raise ValueError(f"need q (B,Sq,H,hd), k (B,Sk,KV,hd) and v (B,Sk,KV,dv), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, hd = q.shape
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd or H % k.shape[2]:
+    if k.shape[0] != B or k.shape[1] < 1 or k.shape[3] != hd or H % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do not form GQA groups")
+    _check_mode(S, k.shape[1], window, causal)
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not q.device == k.device == v.device:
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    return FlashAttention.apply(q, k, v, window, torch.is_grad_enabled())[0]
+    return FlashAttention.apply(q, k, v, window, causal, torch.is_grad_enabled())[0]

@@ -6,15 +6,21 @@ of ``repro.launch.serve``.
 
 (``--arch`` also starcoder2_3b, minicpm_2b, zamba2_7b, the two MoE
 models, granite_moe_3b_a800m and qwen3_moe_30b_a3b, minicpm3_4b (MLA),
-llava_next_mistral_7b and command_r_35b.)  The device defaults to
-``cuda`` and raises without a card.  On the card the prompt's attention
-(zamba2_7b's shared block at head_dim 112 and MLA's at q.k 96 / v 64
-among it) runs through the flash_attention kernel, and RWKV6's time-mix
-and Mamba2's per-head scan through the linear_scan kernel; decode, and
-the MoE layers' routing and expert products, are plain PyTorch, as in
-the reference.  The prompt is tokens only, as in the reference: a VLM's
-prefix embeddings go through ``make_prefill_step``'s
-``batch["prefix_embeds"]``.  Parameters are drawn from an explicit
+llava_next_mistral_7b, command_r_35b and whisper_small, the
+encoder-decoder.)  The device defaults to ``cuda`` and raises without a
+card.  On the card the prompt's attention (zamba2_7b's shared block at
+head_dim 112, MLA's at q.k 96 / v 64, and whisper's encoder and
+cross-attention in the kernel's non-causal mode among it) runs through
+the flash_attention kernel, and RWKV6's time-mix and Mamba2's per-head
+scan through the linear_scan kernel; decode, and the MoE layers' routing
+and expert products, are plain PyTorch, as in the reference.  The prompt
+is tokens only, as in the reference: a VLM's prefix embeddings go
+through ``make_prefill_step``'s ``batch["prefix_embeds"]``.  An
+encoder-decoder's stub audio frames are drawn here as the reference
+draws them, 0.02 N(0, 1) of shape (batch, num_frames, d_model) in fp32,
+from ``torch.Generator(device).manual_seed(9)`` (``encoder_embeds=``
+overrides them), and reach the prefill as ``batch["encoder_embeds"]``;
+the prefill's time includes the encoder.  Parameters are drawn from an explicit
 ``torch.Generator`` in ``param_dtype``, each leaf cast to the compute
 dtype as it is drawn (``decoder.init_params(dtype=)``), so no fp32 tree
 is ever whole: qwen3_moe_30b_a3b's 30.5 B parameters take 61 GB in
@@ -35,13 +41,14 @@ from repro_torch.models.registry import get_config, get_smoke_config
 
 def serve(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
           cache_len: int = 0, seed: int = 0, device="cuda", cfg=None, params=None,
-          stats: dict | None = None, verbose: bool = True):
+          encoder_embeds=None, stats: dict | None = None, verbose: bool = True):
     """Greedy-decode ``gen`` tokens after a random prompt of ``prompt_len``
     tokens (``np.random.RandomState(seed)``, as the reference draws it).
     Returns the generated tokens (batch, gen) as numpy.
 
     ``cfg`` and ``params`` override the registry's config and the seeded
-    draw (tests pass the reference's tree); ``stats``, if given, is filled
+    draw (tests pass the reference's tree), ``encoder_embeds`` an
+    encoder-decoder's drawn stub frames; ``stats``, if given, is filled
     with the prefill seconds, decode seconds and tokens per second (host
     clock around synchronised work) and whether every logit was finite."""
     device = torch.device(device)
@@ -60,6 +67,13 @@ def serve(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
     rng = np.random.RandomState(seed)
     prompt = rng.randint(0, cfg.vocab_size, size=(batch, prompt_len)).astype(np.int32)
     tokens = torch.from_numpy(prompt).to(device=device, dtype=torch.long)
+    inputs = {"tokens": tokens}
+    if cfg.encoder is not None:
+        if encoder_embeds is None:
+            encoder_embeds = 0.02 * torch.randn(
+                (batch, cfg.encoder.num_frames, cfg.d_model),
+                generator=torch.Generator(device=device).manual_seed(9), device=device)
+        inputs["encoder_embeds"] = encoder_embeds.to(device)
 
     def sync():
         if device.type == "cuda":
@@ -67,7 +81,7 @@ def serve(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
 
     sync()
     t0 = time.perf_counter()
-    logits, cache = prefill_fn(params, {"tokens": tokens})
+    logits, cache = prefill_fn(params, inputs)
     finite = torch.isfinite(logits).all()
     sync()
     t_prefill = time.perf_counter() - t0
@@ -96,7 +110,8 @@ def main():
     ap.add_argument("--arch", required=True,
                     help="minicpm_2b, starcoder2_3b, rwkv6_3b, zamba2_7b, "
                          "granite_moe_3b_a800m, qwen3_moe_30b_a3b, minicpm3_4b, "
-                         "llava_next_mistral_7b or command_r_35b")
+                         "llava_next_mistral_7b, command_r_35b or whisper_small "
+                         "(the encoder-decoder, behind stub audio frames)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -18,7 +18,9 @@ over the stacked (P, ...) gradients (``kernels/grad_diff_norm``).  The
 gradients of the attention layers come from the flash_attention backward
 kernel on the card (head_dim 112, zamba2_7b's shared attention,
 included), those of the RWKV6 and Mamba2 recurrences from the
-linear_scan backward kernel; every ported config trains and serves.
+linear_scan backward kernel; every ported config serves, and every one
+but minicpm3_4b and whisper_small (whose attention backwards the kernel
+does not take) trains on the card.
 Each step takes the reference's
 ``moe_dispatch`` ("einsum" or "sort") for the MoE configs; its
 ``q_chunk`` has no counterpart (``models/decoder``).
@@ -73,16 +75,18 @@ def make_prefill_step(cfg, *, moe_dispatch: str = "einsum", fill_cache: bool = F
     """fill_cache=True runs the serving prefill (returns the filled decode
     cache alongside the last-position logits).  ``batch["prefix_embeds"]``
     (B, P, d), where present, goes before the tokens (the VLM stub); the
-    next decode position is then P + the tokens' length."""
+    next decode position is then P + the tokens' length.
+    ``batch["encoder_embeds"]`` (B, F, d) feed an encoder-decoder config's
+    encoder (the audio stub); the filled cache then holds the decoder
+    layers' cross k and v."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        prefix = batch.get("prefix_embeds")
+        kw = dict(prefix_embeds=batch.get("prefix_embeds"),
+                  encoder_embeds=batch.get("encoder_embeds"), moe_dispatch=moe_dispatch)
         if fill_cache:
-            logits, cache, _ = decoder.prefill(cfg, params, batch["tokens"], cache_len,
-                                               prefix_embeds=prefix, moe_dispatch=moe_dispatch)
+            logits, cache, _ = decoder.prefill(cfg, params, batch["tokens"], cache_len, **kw)
             return logits, cache
-        logits, _ = decoder.forward(cfg, params, batch["tokens"], prefix_embeds=prefix,
-                                    moe_dispatch=moe_dispatch)
+        logits, _ = decoder.forward(cfg, params, batch["tokens"], **kw)
         return logits[:, -1]
     return prefill_step
 

@@ -16,7 +16,11 @@ stays plain PyTorch.  MLA's prefill runs in the expanded form, q and k
 at qk_nope + qk_rope = 96 and v at 64 (minicpm3_4b), through the same
 kernel at its unequal head dims; its decode runs in the absorbed form
 over the compressed cache, plain PyTorch as in the reference.
-Cross-attention waits (ROADMAP.md §1 item 11).
+Whisper's encoder self-attention (``encoder_attention``) and its
+cross-attention (``attention_forward(kv_override=)``: the decoder's
+queries over the encoder's frames) run through the same kernel in its
+non-causal mode, with no RoPE; the reference runs both through its plain
+``_sdpa`` with a mask of all ones.
 """
 from __future__ import annotations
 
@@ -67,6 +71,21 @@ def _project_qkv(p, cfg, x):
     return q, k, v
 
 
+def _project_q(p, cfg, x):
+    """q alone, as ``_project_qkv`` computes it (cross-attention: k and v
+    come from the encoder's output).  ``_project_qkv`` keeps its own
+    order of operations: the order in which autograd sums the three
+    projections' gradients into x's sets the bf16 rounding of training."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_normalize(q) * p["q_norm"]
+    return q
+
+
 def _out_proj(p, attn_out):
     B, S = attn_out.shape[:2]
     y = attn_out.reshape(B, S, -1) @ p["wo"]
@@ -78,7 +97,11 @@ def _out_proj(p, attn_out):
 def attention_forward(p, cfg, x, positions, *, window: Optional[int] = None,
                       kv_override=None, return_kv: bool = False):
     """Training/prefill causal self-attention, differentiable in ``p``
-    and ``x``.
+    and ``x``; with ``kv_override`` = (k, v), (B, Sk, KV, hd) each,
+    cross-attention: q alone is projected from ``x``, no RoPE is applied
+    and every query attends to all Sk keys (the kernel's non-causal
+    mode); ``positions`` are then unused.  The reference also projects
+    and discards k and v from ``x`` there; the port does not.
 
     ``positions`` (S,) are the RoPE positions and must be 0..S-1, as in
     every caller of the reference: the kernel masks by index.  The
@@ -91,8 +114,10 @@ def attention_forward(p, cfg, x, positions, *, window: Optional[int] = None,
     post-rope (k, v), which prefill packs into the decode cache.
     """
     if kv_override is not None:
-        raise NotImplementedError("cross-attention (kv_override) is not ported to "
-                                  "repro_torch yet (ROADMAP.md §1 item 11)")
+        k, v = kv_override
+        o = flash.gqa_flash_attention(_project_q(p, cfg, x), k, v, causal=False)
+        y = _out_proj(p, o)
+        return (y, (k, v)) if return_kv else y
     if positions.dim() != 1 or positions.shape[0] != x.shape[1]:
         raise ValueError(f"positions must be (S,) = 0..{x.shape[1] - 1}, "
                          f"got shape {tuple(positions.shape)}")
@@ -102,6 +127,15 @@ def attention_forward(p, cfg, x, positions, *, window: Optional[int] = None,
     o = flash.gqa_flash_attention(q, k, v, window=window)
     y = _out_proj(p, o)
     return (y, (k, v)) if return_kv else y
+
+
+def encoder_attention(p, cfg, x):
+    """The encoder's self-attention (the reference's
+    ``decoder._enc_self_attn``): every frame attends to every frame, no
+    RoPE (the stub embeddings carry position), scale 1/sqrt(head_dim),
+    through the kernel's non-causal mode."""
+    q, k, v = _project_qkv(p, cfg, x)
+    return _out_proj(p, flash.gqa_flash_attention(q, k, v, causal=False))
 
 
 def init_attn_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16, device="cpu"):

@@ -2,11 +2,12 @@
 minicpm and mistral style, with qwen3's per-head q/k RMSNorm), Multi-head
 Latent Attention (MiniCPM3), Cohere's parallel attention and FFN block
 (command-r), Mixture-of-Experts (granite and qwen3-moe), RWKV6, the
-Mamba2 hybrid with one shared attention block (Zamba2), and the
-vision-language stub (LLaVA-NeXT: prefix embeddings before the tokens).
-Port of the ``("attn", False)``, ``("attn", True)``, ``("rwkv6",
-False)``, ``("mamba2", False)`` and ``("shared_attn", False)`` layer
-families of ``repro.models.decoder``.
+Mamba2 hybrid with one shared attention block (Zamba2), the
+vision-language stub (LLaVA-NeXT: prefix embeddings before the tokens)
+and the encoder-decoder behind a stub audio frontend (Whisper).  Port of
+the ``("attn", False)``, ``("attn", True)``, ``("rwkv6", False)``,
+``("mamba2", False)`` and ``("shared_attn", False)`` layer families of
+``repro.models.decoder``, and of its encoder tower.
 
 Layers are grouped into maximal runs of identical block type with
 stacked parameters, as in the reference, so a reference tree carries
@@ -24,24 +25,35 @@ block (``cfg.parallel_block``) has no ``norm2`` and adds its attention
 and FFN, both of the one normed input, to the residual at once.
 ``prefix_embeds`` (B, P, d), a stub frontend's output (vision), go
 before the scaled token embeddings in ``forward``, ``prefill`` and
-``loss_fn``; positions count them.  The encoder-decoder (whisper) and an
-audio frontend raise ``NotImplementedError`` (ROADMAP.md §1 item 11).
+``loss_fn``; positions count them.  An encoder-decoder config
+(``cfg.encoder``, whisper) has ``params["encoder"]`` ({"groups": one
+stack of ``cfg.encoder.num_layers`` attention layers, "final_norm"}),
+drawn after everything else, and each decoder layer holds ``cross_norm``
+and ``cross_attn`` between its attention and ``norm2``.
+``encoder_embeds`` (B, F, d), the stub audio frontend's frames, go
+through the encoder (non-causal self-attention, no RoPE, no residual
+scale) in ``forward``, ``loss_fn``, ``prefill`` and ``init_cache``; each
+decoder layer then attends to its output through its cross-attention,
+whose k and v (B, F, KV, hd) a layer prefill and ``init_cache`` keep in
+``cache["cross"]`` (one stack a group) for ``decode_step``.
 
 Public API (plain functions of (cfg, params, ...)):
   init_params(cfg, generator, dtype=None)
-  forward(cfg, params, tokens, prefix_embeds=None, remat=True) -> logits, aux
+  forward(cfg, params, tokens, prefix_embeds=None, encoder_embeds=None,
+          remat=True)                            -> logits, aux
   loss_fn(cfg, params, batch, remat=True)        -> loss, metrics
-  prefill(cfg, params, tokens, cache_len, prefix_embeds=None)
-                                                 -> last logits, cache, next pos
-  init_cache(cfg, params, batch, cache_len)
+  prefill(cfg, params, tokens, cache_len, prefix_embeds=None,
+          encoder_embeds=None)                   -> last logits, cache, next pos
+  init_cache(cfg, params, batch, cache_len, encoder_embeds=None)
   decode_step(cfg, params, cache, token, pos)    -> logits, cache
 
 ``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take the
 reference's ``moe_dispatch`` ("einsum" or "sort"; MoE layers only).
 ``forward`` and ``loss_fn`` are differentiable in the parameters (the
 attention layer's kernels have a backward; RWKV6 and Mamba2 through
-the linear_scan kernel's; MLA trains on the CPU only: the attention
-backward kernel takes no unequal q.k and v head dims and raises).
+the linear_scan kernel's; MLA and whisper train on the CPU only: the
+attention backward kernel takes no unequal q.k and v head dims and no
+non-causal attention, and raises).
 ``remat`` recomputes each layer's forward in the backward
 (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
 activations, as the reference's ``jax.checkpoint`` of the scanned layer
@@ -85,11 +97,19 @@ def layer_groups(cfg):
 
 
 def check_supported(cfg) -> None:
-    """Raise NotImplementedError for the parts of the zoo not ported yet."""
+    """Raise NotImplementedError for the parts of the zoo not ported yet.
+    An encoder goes with GQA attention layers in sequential blocks alone
+    (whisper), where the reference runs it; an audio frontend (the stub
+    of whisper's) only beside an encoder."""
     missing = [f"layer {t}" for t, _ in layer_groups(cfg) if t not in PORTED_TAGS]
+    fe = cfg.frontend
     missing += [name for name, on in (
-        ("encoder", cfg.encoder is not None),
-        ("frontend", cfg.frontend is not None and cfg.frontend.kind != "vision")) if on]
+        ("encoder beside MLA, parallel blocks or layers other than attention",
+         cfg.encoder is not None and (cfg.attention != "gqa" or cfg.parallel_block
+                                      or any(k != "attn" for k in cfg.pattern()))),
+        ("audio frontend without an encoder",
+         fe is not None and fe.kind == "audio" and cfg.encoder is None),
+        ("frontend", fe is not None and fe.kind not in ("vision", "audio"))) if on]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported to "
                                   f"repro_torch yet (ROADMAP.md §1 item 11)")
@@ -97,7 +117,9 @@ def check_supported(cfg) -> None:
 
 # ----------------------------------------------------------------- init ---
 
-def _init_layer(fac, cfg, tag):
+def _init_layer(fac, cfg, tag, cross: bool = False):
+    """One layer's tree, drawn in the reference's order; ``cross`` adds a
+    decoder layer's cross-attention (an encoder-decoder config)."""
     kind, is_moe = tag
     p = {"norm1": init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)}
     if kind == "mamba2":
@@ -110,6 +132,9 @@ def _init_layer(fac, cfg, tag):
     if kind == "attn":
         p["attn"] = attn.init_mla(fac, cfg) if cfg.attention == "mla" else \
             attn.init_attention(fac, cfg)
+    if cross:
+        p["cross_norm"] = init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)
+        p["cross_attn"] = attn.init_attention(fac, cfg)
     if not cfg.parallel_block:
         p["norm2"] = init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)
     if is_moe:
@@ -132,15 +157,15 @@ class _CastingFactory(ParamFactory):
         return x.to(self.cast) if x.is_floating_point() else x
 
 
-def _stack_layers(fac, cfg, tag, count):
+def _stack_layers(fac, cfg, tag, count, cross=False):
     """``count`` layers drawn one after another, each written into the
     stacked buffers as it comes: one layer's leaves live beside the stack."""
-    leaves, treedef = tree_flatten(_init_layer(fac, cfg, tag))
+    leaves, treedef = tree_flatten(_init_layer(fac, cfg, tag, cross))
     stacked = [torch.empty((count,) + tuple(x.shape), dtype=x.dtype, device=x.device)
                for x in leaves]
     for i in range(count):
         if i:
-            leaves = tree_leaves(_init_layer(fac, cfg, tag))
+            leaves = tree_leaves(_init_layer(fac, cfg, tag, cross))
         for buf, x in zip(stacked, leaves):
             buf[i] = x
         del leaves
@@ -159,15 +184,22 @@ def init_params(cfg, generator: torch.Generator, dtype=None):
     pt = getattr(torch, cfg.param_dtype)
     fac = ParamFactory(generator, dtype=pt) if dtype is None else \
         _CastingFactory(generator, pt, dtype)
+    cross = cfg.encoder is not None
     params = {
         "embed": init_embedding(fac, cfg.padded_vocab(), cfg.d_model),
-        "groups": [_stack_layers(fac, cfg, tag, count) for tag, count in layer_groups(cfg)],
+        "groups": [_stack_layers(fac, cfg, tag, count, cross)
+                   for tag, count in layer_groups(cfg)],
         "final_norm": init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = init_unembed(fac, cfg.d_model, cfg.padded_vocab())
     if any(k == "shared_attn" for k in cfg.pattern()):
         params["shared_attn"] = attn.init_attention(fac, cfg)
+    if cross:
+        params["encoder"] = {
+            "groups": [_stack_layers(fac, cfg, ("attn", False), cfg.encoder.num_layers)],
+            "final_norm": init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias),
+        }
     return params
 
 
@@ -223,25 +255,27 @@ def _ffn(cfg, lp, h, tag, moe_dispatch):
     return apply_mlp(lp["mlp"], h, cfg.activation), None
 
 
-def _apply_layer(cfg, lp, shared, x, positions, tag, *, window=None, cache_len=None,
-                 cache_dtype=torch.bfloat16, moe_dispatch="einsum"):
+def _apply_layer(cfg, lp, shared, x, positions, tag, *, enc_out=None, window=None,
+                 cache_len=None, cache_dtype=torch.bfloat16, moe_dispatch="einsum"):
     """One layer forward (training/prefill); ``shared`` is the top-level
-    attention block a ``shared_attn`` layer reads.  Returns (x, the
-    layer's filled decode cache with ``cache_len``, else None, its MoE
-    aux loss, else None)."""
+    attention block a ``shared_attn`` layer reads, ``enc_out`` the
+    encoder's output that an encoder-decoder layer's cross-attention
+    reads.  Returns (x, the layer's filled decode cache with
+    ``cache_len``, else None, its MoE aux loss, else None, its cross
+    cache {"k", "v"} with ``cache_len`` and ``enc_out``, else None)."""
     kind, _ = tag
     rs = _residual_scale(cfg)
     if kind == "mamba2":
         h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
         y, (conv, ssm) = rec.mamba2_forward(lp["mamba"], cfg, h)
-        return x + y * rs, {"conv": conv, "ssm": ssm}, None
+        return x + y * rs, {"conv": conv, "ssm": ssm}, None, None
     if kind == "rwkv6":
         h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
         y, (sh, wkv) = rec.rwkv6_time_mix(lp["tm"], cfg, h)
         x = x + y * rs
         h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
         y, cm_sh = rec.rwkv6_channel_mix(lp["tm"], h)
-        return x + y * rs, {"tm_shift": sh, "wkv": wkv, "cm_shift": cm_sh}, None
+        return x + y * rs, {"tm_shift": sh, "wkv": wkv, "cm_shift": cm_sh}, None, None
 
     h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
     lcache = None
@@ -260,35 +294,87 @@ def _apply_layer(cfg, lp, shared, x, positions, tag, *, window=None, cache_len=N
                       "v": _pack_rotating(v, alen, cache_dtype)}
     if cfg.parallel_block:
         y, aux = _ffn(cfg, lp, h, tag, moe_dispatch)
-        return x + (a + y) * rs, lcache, aux
+        return x + (a + y) * rs, lcache, aux, None
     x = x + a * rs
+    cross = None
+    if enc_out is not None:
+        h = apply_norm(lp["cross_norm"], x, cfg.norm, cfg.norm_eps)
+        kc, vc = _cross_kv(lp["cross_attn"], cfg, enc_out)
+        x = x + attn.attention_forward(lp["cross_attn"], cfg, h, positions,
+                                       kv_override=(kc, vc)) * rs
+        if cache_len is not None:      # the reference computes these twice; once is the same
+            cross = {"k": kc.to(cache_dtype), "v": vc.to(cache_dtype)}
     h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
     y, aux = _ffn(cfg, lp, h, tag, moe_dispatch)
-    return x + y * rs, lcache, aux
+    return x + y * rs, lcache, aux, cross
 
 
-def _train_layer(cfg, tag, moe_dispatch, lp, shared, x, positions):
-    x, _, aux = _apply_layer(cfg, lp, shared, x, positions, tag, window=cfg.sliding_window,
-                             moe_dispatch=moe_dispatch)
+def _cross_kv(ap, cfg, enc_out):
+    """A decoder layer's cross-attention k and v, (B, F, KV, hd) each, from
+    the encoder's output (B, F, d)."""
+    B, F, _ = enc_out.shape
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    k = (enc_out @ ap["wk"]).reshape(B, F, KV, hd)
+    v = (enc_out @ ap["wv"]).reshape(B, F, KV, hd)
+    if "bk" in ap:
+        k = k + ap["bk"].reshape(KV, hd)
+        v = v + ap["bv"].reshape(KV, hd)
+    return k, v
+
+
+def _enc_layer(cfg, lp, e):
+    """One encoder layer: pre-norm non-causal self-attention and MLP, no
+    residual scale (the reference's ``ebody``)."""
+    h = apply_norm(lp["norm1"], e, cfg.norm, cfg.norm_eps)
+    e = e + attn.encoder_attention(lp["attn"], cfg, h)
+    h = apply_norm(lp["norm2"], e, cfg.norm, cfg.norm_eps)
+    return e + apply_mlp(lp["mlp"], h, cfg.activation)
+
+
+def _encode(cfg, params, encoder_embeds, remat: bool = False):
+    """The encoder tower over ``encoder_embeds`` (B, F, d), in the compute
+    dtype, then its final norm: (B, F, d).  With ``remat`` and grad
+    enabled each layer is checkpointed, as the decoder's are."""
+    if encoder_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass encoder_embeds "
+                         f"(B, {cfg.encoder.num_frames}, {cfg.d_model})")
+    params = cast_params(cfg, params)
+    e = encoder_embeds.to(getattr(torch, cfg.compute_dtype))
+    remat = remat and torch.is_grad_enabled()
+    for gp in params["encoder"]["groups"]:
+        for i in range(tree_leaves(gp)[0].shape[0]):
+            if remat:
+                e = checkpoint(_enc_layer, cfg, _layer(gp, i), e, use_reentrant=False)
+            else:
+                e = _enc_layer(cfg, _layer(gp, i), e)
+    return apply_norm(params["encoder"]["final_norm"], e, cfg.norm, cfg.norm_eps)
+
+
+def _train_layer(cfg, tag, moe_dispatch, lp, shared, x, positions, enc_out):
+    x, _, aux, _ = _apply_layer(cfg, lp, shared, x, positions, tag, enc_out=enc_out,
+                                window=cfg.sliding_window, moe_dispatch=moe_dispatch)
     return x, aux
 
 
-def forward(cfg, params, tokens, *, prefix_embeds=None, moe_dispatch: str = "einsum",
-            remat: bool = True):
+def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
+            moe_dispatch: str = "einsum", remat: bool = True):
     """tokens (B, S); ``prefix_embeds`` (B, P, d) go before them (the VLM
-    stub).  Returns (logits (B, P + S, V), the MoE layers' summed aux
-    loss, fp32; 0 without MoE).  With ``remat`` and grad enabled each
-    layer is checkpointed."""
+    stub); ``encoder_embeds`` (B, F, d) feed the encoder tower of an
+    encoder-decoder config (the audio stub).  Returns (logits (B, P + S,
+    V), the MoE layers' summed aux loss, fp32; 0 without MoE).  With
+    ``remat`` and grad enabled each layer, the encoder's too, is
+    checkpointed."""
     check_supported(cfg)
     params = cast_params(cfg, params)
     x = _embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    enc_out = _encode(cfg, params, encoder_embeds, remat) if cfg.encoder is not None else None
     remat = remat and torch.is_grad_enabled()
     shared = params.get("shared_attn")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gp, (tag, count) in zip(params["groups"], layer_groups(cfg)):
         for i in range(count):
-            args = (cfg, tag, moe_dispatch, _layer(gp, i), shared, x, positions)
+            args = (cfg, tag, moe_dispatch, _layer(gp, i), shared, x, positions, enc_out)
             if remat:
                 x, aux = checkpoint(_train_layer, *args, use_reentrant=False)
             else:
@@ -302,15 +388,14 @@ def forward(cfg, params, tokens, *, prefix_embeds=None, moe_dispatch: str = "ein
 
 def loss_fn(cfg, params, batch, *, moe_dispatch: str = "einsum", remat: bool = True):
     """batch: {"tokens": (B, S), "labels": (B, S) with -1 = masked,
-    optionally "prefix_embeds" (B, P, d)}.  Mean next-token NLL over the
-    unmasked labels, from an fp32 ``log_softmax`` of the logits (prefix
-    positions carry no loss), plus ``router_aux_coef`` times the summed
-    aux loss for an MoE config.  Returns (loss, {"nll", "aux"}): "nll" is
-    the loss itself, as in the reference."""
-    if "encoder_embeds" in batch:
-        raise NotImplementedError("encoder_embeds are not ported to repro_torch yet "
-                                  "(ROADMAP.md §1 item 11)")
+    optionally "prefix_embeds" (B, P, d) and "encoder_embeds" (B, F, d)}.
+    Mean next-token NLL over the unmasked labels, from an fp32
+    ``log_softmax`` of the logits (prefix positions carry no loss), plus
+    ``router_aux_coef`` times the summed aux loss for an MoE config.
+    Returns (loss, {"nll", "aux"}): "nll" is the loss itself, as in the
+    reference."""
     logits, aux = forward(cfg, params, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"),
+                          encoder_embeds=batch.get("encoder_embeds"),
                           moe_dispatch=moe_dispatch, remat=remat)
     labels = batch["labels"]
     logits = logits[:, logits.shape[1] - labels.shape[1]:]   # prefix positions carry no loss
@@ -348,41 +433,54 @@ def _stack_caches(layer_caches):
     return tree_map(lambda *xs: torch.stack(xs), *layer_caches)
 
 
-def prefill(cfg, params, tokens, cache_len: int, *, prefix_embeds=None,
+def prefill(cfg, params, tokens, cache_len: int, *, prefix_embeds=None, encoder_embeds=None,
             cache_dtype=torch.bfloat16, moe_dispatch: str = "einsum"):
     """Batched prompt processing: one forward pass that returns
     (last_position_logits (B,1,V), filled_cache, next_pos), the same cache
     that stepping ``decode_step`` over the prompt fills.  With
     ``prefix_embeds`` (B, P, d) the prompt is those embeddings then the
-    tokens, and next_pos counts both."""
+    tokens, and next_pos counts both.  An encoder-decoder config runs its
+    encoder over ``encoder_embeds`` (B, F, d) first and returns the cross
+    caches too (``cache["cross"]``, as ``init_cache`` fills them)."""
     check_supported(cfg)
     params = cast_params(cfg, params)
     x = _embed(cfg, params, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    enc_out = _encode(cfg, params, encoder_embeds) if cfg.encoder is not None else None
     shared = params.get("shared_attn")
-    caches = []
+    caches, crosses = [], []
     for gp, (tag, count) in zip(params["groups"], layer_groups(cfg)):
-        layer_caches = []
+        layer_caches, layer_crosses = [], []
         for i in range(count):
-            x, lc, _ = _apply_layer(cfg, _layer(gp, i), shared, x, positions, tag,
-                                    window=cfg.sliding_window, cache_len=cache_len,
-                                    cache_dtype=cache_dtype, moe_dispatch=moe_dispatch)
+            x, lc, _, cc = _apply_layer(cfg, _layer(gp, i), shared, x, positions, tag,
+                                        enc_out=enc_out, window=cfg.sliding_window,
+                                        cache_len=cache_len, cache_dtype=cache_dtype,
+                                        moe_dispatch=moe_dispatch)
             layer_caches.append(lc)
+            layer_crosses.append(cc)
         caches.append(_stack_caches(layer_caches))
-    return _logits(cfg, params, x[:, -1:]), {"groups": caches}, S
+        if enc_out is not None:
+            crosses.append(_stack_caches(layer_crosses))
+    cache = {"groups": caches}
+    if enc_out is not None:
+        cache["cross"] = crosses
+    return _logits(cfg, params, x[:, -1:]), cache, S
 
 
 # --------------------------------------------------------------- decode ---
 
-def init_cache(cfg, params, batch: int, cache_len: int, *, dtype=torch.bfloat16,
-               device=None):
+def init_cache(cfg, params, batch: int, cache_len: int, *, encoder_embeds=None,
+               dtype=torch.bfloat16, device=None):
     """Build the per-group stacked cache tree (on the parameters' device
     unless ``device`` is given).  An MLA layer's compressed cache is
     ``cache_len`` long whatever ``serve_window`` is, as in the reference.
     A Mamba2 layer's conv state is fp32
     whatever ``dtype`` is, as in the reference (its prefill returns it in
-    the compute dtype, and so does its first decode step)."""
+    the compute dtype, and so does its first decode step).  An
+    encoder-decoder config runs its encoder over ``encoder_embeds`` (B,
+    F, d) and keeps each decoder layer's cross k and v in ``dtype``
+    (``cache["cross"]``, one stack a group)."""
     check_supported(cfg)
     device = device if device is not None else params["embed"]["table"].device
     window = cfg.serve_window
@@ -400,10 +498,18 @@ def init_cache(cfg, params, batch: int, cache_len: int, *, dtype=torch.bfloat16,
             s = rec.init_rwkv6_state(cfg, batch, device=device)
             one = {"tm_shift": s[0], "wkv": s[1], "cm_shift": s[2]}
         caches.append(tree_map(lambda a: torch.stack([a] * count), one))
-    return {"groups": caches}
+    cache = {"groups": caches}
+    if cfg.encoder is not None:
+        enc_out = _encode(cfg, params, encoder_embeds)
+        cache["cross"] = []
+        for gp, (_, count) in zip(cast_params(cfg, params)["groups"], layer_groups(cfg)):
+            kv = [_cross_kv(_layer(gp, i)["cross_attn"], cfg, enc_out) for i in range(count)]
+            cache["cross"].append({"k": torch.stack([k for k, _ in kv]).to(dtype),
+                                   "v": torch.stack([v for _, v in kv]).to(dtype)})
+    return cache
 
 
-def _decode_layer(cfg, lp, shared, x, lcache, pos, tag, moe_dispatch):
+def _decode_layer(cfg, lp, shared, x, lcache, pos, tag, moe_dispatch, cross_kv=None):
     kind, _ = tag
     rs = _residual_scale(cfg)
     if kind == "mamba2":
@@ -430,9 +536,31 @@ def _decode_layer(cfg, lp, shared, x, lcache, pos, tag, moe_dispatch):
         y, _ = _ffn(cfg, lp, h, tag, moe_dispatch)
         return x + (a + y) * rs, new_cache
     x = x + a * rs
+    if cross_kv is not None:
+        h = apply_norm(lp["cross_norm"], x, cfg.norm, cfg.norm_eps)
+        x = x + _cross_decode(lp["cross_attn"], cfg, h, cross_kv) * rs
     h = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
     y, _ = _ffn(cfg, lp, h, tag, moe_dispatch)
     return x + y * rs, new_cache
+
+
+def _cross_decode(ap, cfg, x, cross_kv):
+    """One token's cross-attention over the layer's cross cache {"k", "v"}
+    (B, F, KV, hd), plain PyTorch with fp32 scores, as the reference's
+    (which projects q without qk-norm here)."""
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ ap["wq"]).reshape(B, 1, H, hd)
+    if "bq" in ap:
+        q = q + ap["bq"].reshape(H, hd)
+    k, v = cross_kv["k"], cross_kv["v"]
+    qg = q.reshape(B, KV, H // KV, hd)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k.to(q.dtype)).float() * (1.0 / hd ** 0.5)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v)
+    # a bf16 cache under fp32 compute: jnp promotes the product to fp32
+    out = out.to(torch.promote_types(out.dtype, ap["wo"].dtype))
+    return attn._out_proj(ap, out.reshape(B, 1, H, hd))
 
 
 def decode_step(cfg, params, cache, token, pos: int, *, moe_dispatch: str = "einsum"):
@@ -445,12 +573,14 @@ def decode_step(cfg, params, cache, token, pos: int, *, moe_dispatch: str = "ein
     x = _embed(cfg, params, token)
     shared = params.get("shared_attn")
     new_groups = []
+    cross = cache.get("cross")
     for gi, (gp, (tag, count)) in enumerate(zip(params["groups"], layer_groups(cfg))):
         gc = cache["groups"][gi]
         layer_caches = []
         for i in range(count):
             x, nc = _decode_layer(cfg, _layer(gp, i), shared, x, _layer(gc, i), pos, tag,
-                                  moe_dispatch)
+                                  moe_dispatch,
+                                  cross_kv=None if cross is None else _layer(cross[gi], i))
             layer_caches.append(nc)
         new_groups.append(_stack_caches(layer_caches))
     new_cache = dict(cache)

@@ -12,9 +12,11 @@ kernel and its backward.  minicpm3_4b (Multi-head Latent Attention),
 llava_next_mistral_7b (a Mistral backbone behind stub vision prefix
 embeddings) and command_r_35b (parallel attention and FFN blocks)
 serve; MLA trains on the CPU only (the attention backward kernel takes
-no unequal q.k and v head dims).
-whisper_small raises ``NotImplementedError``: ROADMAP.md §1 item 11
-queues it.
+no unequal q.k and v head dims).  whisper_small (an encoder-decoder
+behind stub audio frame embeddings) serves, its encoder and
+cross-attention through the flash_attention kernel's non-causal mode;
+it trains on the CPU only (the attention backward kernel is causal
+only, ROADMAP.md §1 item 11).
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ ARCH_IDS = (
     "whisper_small",
 )
 PORTED = ("minicpm_2b", "starcoder2_3b", "rwkv6_3b", "zamba2_7b", "granite_moe_3b_a800m",
-          "qwen3_moe_30b_a3b", "minicpm3_4b", "llava_next_mistral_7b", "command_r_35b")
+          "qwen3_moe_30b_a3b", "minicpm3_4b", "llava_next_mistral_7b", "command_r_35b",
+          "whisper_small")
 
 
 def normalize(arch: str) -> str:

@@ -126,10 +126,13 @@ def test_config_and_param_tree_match_reference(ref_params, arch):
 
 
 def test_encoder_and_audio_frontend_still_raise():
-    """whisper_small's encoder (and an audio frontend) wait: the registry
-    and check_supported raise naming ROADMAP.md."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_config("whisper_small")
+    """whisper_small's encoder and its audio frontend are ported: its
+    config passes check_supported.  An audio frontend without an encoder
+    still raises naming ROADMAP.md, and so does an encoder beside
+    command_r's parallel blocks (the reference's encoder layers read a
+    norm2 that parallel blocks do not draw)."""
+    tdec.check_supported(registry.get_config("whisper_small"))
+    tdec.check_supported(registry.get_smoke_config("whisper_small"))
     cfg = registry.get_smoke_config("command_r_35b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdec.check_supported(cfg.replace(encoder=EncoderConfig(num_layers=2, num_frames=8)))
@@ -137,10 +140,9 @@ def test_encoder_and_audio_frontend_still_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdec.check_supported(cfg.replace(frontend=type(audio)(kind="audio",
                                                               num_prefix_tokens=4)))
-    toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdec.loss_fn(cfg, tdec.init_params(cfg, torch.Generator().manual_seed(0)),
-                     {"tokens": toks, "labels": toks, "encoder_embeds": torch.zeros(1, 2, 256)})
+    whisper = registry.get_smoke_config("whisper_small")
+    with pytest.raises(NotImplementedError, match="audio frontend without an encoder"):
+        tdec.check_supported(whisper.replace(encoder=None))
 
 
 # ------------------------------------------------------- forward and loss ---

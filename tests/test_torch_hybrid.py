@@ -509,8 +509,10 @@ def test_backward_refuses_head_dim_112_and_the_rest_still_raises():
     """Both kernels take head_dim 112, the backward too (zamba2_7b's shared
     attention trains on the card); a head dim neither takes is refused in
     Python, before any launch, and so is MLA's unequal pair (96, 64) by the
-    backward alone.  MLA and parallel blocks are ported now (minicpm3_4b,
-    command_r_35b); the encoder-decoder still raises."""
+    backward alone.  MLA, parallel blocks and the encoder-decoder are
+    ported now (minicpm3_4b, command_r_35b, whisper_small); an encoder
+    beside Mamba2 layers, and an audio frontend without an encoder, still
+    raise."""
     assert 112 in fa_ops.HEAD_DIMS and 112 in fa_ops.BWD_HEAD_DIMS
     fa_ops._check_launch(torch.zeros(1, 1, 1, 112))
     fa_ops._check_launch(torch.zeros(1, 1, 1, 112), backward=True)
@@ -522,12 +524,13 @@ def test_backward_refuses_head_dim_112_and_the_rest_still_raises():
         fa_ops._check_launch(torch.zeros(1, 1, 1, 96), backward=True, dv=64)
     cfg = registry.get_smoke_config(ARCH)
     tdec.check_supported(cfg.replace(parallel_block=True))
-    for arch in ("minicpm3_4b", "command_r_35b"):
+    for arch in ("minicpm3_4b", "command_r_35b", "whisper_small"):
         tdec.check_supported(registry.get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tdec.check_supported(cfg.replace(encoder=EncoderConfig(num_layers=2, num_frames=8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_config("whisper_small")
+    whisper = registry.get_config("whisper_small")
+    with pytest.raises(NotImplementedError, match="audio frontend without an encoder"):
+        tdec.check_supported(whisper.replace(encoder=None))
 
 
 def test_plain_attention_at_head_dim_112():

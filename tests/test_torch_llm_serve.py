@@ -198,11 +198,26 @@ class TestAttention:
             assert torch.equal(tc[key], torch.from_numpy(cache[key]).to(torch.bfloat16))
 
     def test_cross_attention_raises(self, ref_params):
-        _, tcfg = configs("starcoder2_3b")
-        tp = from_jax_params(layer0(ref_params["starcoder2_3b"], "attn"))
-        x = torch.zeros(1, 4, tcfg.d_model)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tattn.attention_forward(tp, tcfg, x, torch.arange(4), kv_override=(x, x))
+        """Cross-attention is ported (whisper_small): starcoder2_3b's layer
+        with kv_override, 11 queries over 29 keys (GQA), is the
+        reference's; k and v that do not form GQA groups with q raise,
+        and so does causal attention over unequal lengths."""
+        jcfg, tcfg = configs("starcoder2_3b")
+        jp, tp = cast_pair(layer0(ref_params["starcoder2_3b"], "attn"), "float32")
+        jx, tx = both(rnd(24, (2, 11, jcfg.d_model)))
+        KV, hd = jcfg.num_kv_heads, jcfg.head_dim
+        jk, tk = both(rnd(25, (2, 29, KV, hd)))
+        jv, tv = both(rnd(26, (2, 29, KV, hd)))
+        pos = np.arange(11, dtype=np.int32)
+        got = tattn.attention_forward(tp, tcfg, tx, torch.from_numpy(pos), kv_override=(tk, tv))
+        want = jattn.attention_forward(jp, jcfg, jx, jnp.asarray(pos), kv_override=(jk, jv))
+        scaled_close(got, want, 1e-4)
+        bad = torch.zeros(2, 29, KV, hd + 8)
+        with pytest.raises(ValueError, match="GQA groups"):
+            tattn.attention_forward(tp, tcfg, tx, torch.from_numpy(pos), kv_override=(bad, bad))
+        q = torch.zeros(2, 11, tcfg.num_heads, hd)
+        with pytest.raises(ValueError, match="as many keys as queries"):
+            fa_ops.gqa_flash_attention(q, tk, tv)
 
 
 class TestRWKV6:
@@ -467,7 +482,9 @@ def assert_same_config(t, j):
 def test_registry_serves_the_ported_archs_only():
     assert set(registry.PORTED) == set(ARCHS) | {"zamba2_7b", "granite_moe_3b_a800m",
                                                   "qwen3_moe_30b_a3b", "minicpm3_4b",
-                                                  "llava_next_mistral_7b", "command_r_35b"}
+                                                  "llava_next_mistral_7b", "command_r_35b",
+                                                  "whisper_small"}
+    assert set(registry.PORTED) == set(registry.ARCH_IDS)
     for arch in registry.PORTED:
         assert_same_config(registry.get_config(arch), jget_config(arch))
         assert_same_config(registry.get_smoke_config(arch.replace("_", "-")),
@@ -481,8 +498,11 @@ def test_registry_serves_the_ported_archs_only():
     tdec.check_supported(cfg.replace(qk_norm=True))
     tdec.check_supported(cfg.replace(parallel_block=True))
     tdec.check_supported(registry.get_smoke_config("minicpm3_4b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdec.check_supported(cfg.replace(encoder=EncoderConfig(num_layers=2, num_frames=8)))
+    tdec.check_supported(registry.get_smoke_config("whisper_small"))
+    tdec.check_supported(cfg.replace(encoder=EncoderConfig(num_layers=2, num_frames=8)))
+    whisper = registry.get_smoke_config("whisper_small")
+    with pytest.raises(NotImplementedError, match="audio frontend without an encoder"):
+        tdec.check_supported(whisper.replace(encoder=None))
 
 
 def test_param_tree_matches_reference_layout_and_round_trips(ref_params):

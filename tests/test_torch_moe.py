@@ -409,17 +409,26 @@ def test_param_tree_matches_reference_layout_and_round_trips(ref_params, arch):
 def _whole_layer_draw(cfg, gen):
     """The draw as the port made it before the streamed route: every
     layer's tree whole, then stacked (the seed-0 weights of earlier
-    chip runs)."""
+    chip runs); an encoder-decoder's layers with their cross-attention,
+    then its encoder, as the reference draws them."""
     fac = ParamFactory(gen, dtype=getattr(torch, cfg.param_dtype))
+    cross = cfg.encoder is not None
+
+    def stack(tag, count, cross):
+        return tree_map(lambda *xs: torch.stack(xs),
+                        *[tdec._init_layer(fac, cfg, tag, cross) for _ in range(count)])
+
     params = {"embed": tdec.init_embedding(fac, cfg.padded_vocab(), cfg.d_model),
-              "groups": [tree_map(lambda *xs: torch.stack(xs),
-                                  *[tdec._init_layer(fac, cfg, tag) for _ in range(count)])
-                         for tag, count in tdec.layer_groups(cfg)],
+              "groups": [stack(tag, count, cross) for tag, count in tdec.layer_groups(cfg)],
               "final_norm": tdec.init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)}
     if not cfg.tie_embeddings:
         params["unembed"] = tdec.init_unembed(fac, cfg.d_model, cfg.padded_vocab())
     if any(k == "shared_attn" for k in cfg.pattern()):
         params["shared_attn"] = tdec.attn.init_attention(fac, cfg)
+    if cross:
+        params["encoder"] = {
+            "groups": [stack(("attn", False), cfg.encoder.num_layers, False)],
+            "final_norm": tdec.init_norm(fac, cfg.d_model, cfg.norm, cfg.use_bias)}
     return params
 
 
@@ -451,8 +460,11 @@ def test_check_supported_takes_moe_and_qk_norm_only():
     assert ("attn", True) in tdec.PORTED_TAGS
     tdec.check_supported(cfg.replace(parallel_block=True))
     tdec.check_supported(registry.get_smoke_config("minicpm3_4b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdec.check_supported(cfg.replace(encoder=EncoderConfig(num_layers=2, num_frames=8)))
+    tdec.check_supported(registry.get_smoke_config("whisper_small"))
+    tdec.check_supported(cfg.replace(encoder=EncoderConfig(num_layers=2, num_frames=8)))
+    whisper = registry.get_smoke_config("whisper_small")
+    with pytest.raises(NotImplementedError, match="audio frontend without an encoder"):
+        tdec.check_supported(whisper.replace(encoder=None))
 
 
 # ------------------------------------------------------------ on the card ---

@@ -60,6 +60,9 @@ def test_port_imports_with_jax_blocked():
         "assert get_smoke_config('zamba2_7b').name == 'zamba2_7b_smoke'\n"
         "assert get_smoke_config('qwen3_moe_30b_a3b').qk_norm\n"
         "assert get_smoke_config('granite_moe_3b_a800m').moe.num_experts == 4\n"
+        "assert get_smoke_config('whisper_small').encoder.num_frames == 16\n"
+        "import repro_torch.configs.whisper_small, repro_torch.models.attention\n"
+        "import repro_torch.launch.steps\n"
         "import repro_torch.models.moe\n"
         "import repro_torch.algorithms.builtin, repro_torch.compress\n"
         "from repro_torch.core.runtimes import run_event_driven, run_round_based\n"
